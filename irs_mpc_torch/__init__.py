@@ -1,0 +1,28 @@
+"""irs_mpc_torch: iterative Randomized-Smoothing MPC in PyTorch and CUDA.
+
+The PyTorch port of the JAX package beside it in this repository, which
+stays the reference it is tested against.  Tensors on a CUDA device run the
+hand-written kernels in ``csrc/``; tensors on the CPU run the plain PyTorch
+versions of the same functions.
+
+Importing the package sets float32 matrix products to full precision
+(no TF32), the counterpart of the JAX package's
+``default_matmul_precision("highest")``: the Riccati and least-squares
+matrices are small but ill-conditioned.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from .models.base import System  # noqa: E402
+from .models.pendulum import make_pendulum  # noqa: E402
+from .ops.estimators import SmoothingConfig, estimate_tv_matrices  # noqa: E402
+from .ops import lqr  # noqa: E402
+from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats  # noqa: E402
+
+__all__ = [
+    "System", "make_pendulum", "SmoothingConfig", "estimate_tv_matrices",
+    "lqr", "IrsMpc", "IrsMpcParams", "IterationStats",
+]

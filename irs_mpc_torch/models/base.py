@@ -1,0 +1,60 @@
+"""Dynamical-system abstraction of the PyTorch port.
+
+A system is one step function ``x_{t+1} = step(x_t, u_t)`` written over
+leading batch dimensions: ``step`` maps (..., n), (..., m) to (..., n), so
+the batched step is the step itself.  Jacobians are derived with
+``torch.func.jacfwd``, batched with ``torch.func.vmap``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+Tensor = torch.Tensor
+StepFn = Callable[[Tensor, Tensor], Tensor]
+# Sample projection onto a constraint manifold, batched over knots:
+# (x (T,n), dx (T,S,n), u (T,m), du (T,S,m))
+#     -> (x_proj (T,S,n), u_proj (T,S,m)).
+ProjectionFn = Callable[[Tensor, Tensor, Tensor, Tensor],
+                        tuple[Tensor, Tensor]]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class System:
+    """A discrete-time dynamical system ``x_{t+1} = step(x_t, u_t)``."""
+
+    name: str
+    dim_x: int
+    dim_u: int
+    h: float
+    step: StepFn
+    projection: Optional[ProjectionFn] = None
+
+    def step_batch(self, x: Tensor, u: Tensor) -> Tensor:
+        """Batched dynamics: (B,n), (B,m) -> (B,n)."""
+        return self.step(x, u)
+
+    def jacobian_xu(self, x: Tensor, u: Tensor) -> Tensor:
+        """Fat Jacobian ``[df/dx | df/du]`` of shape (n, n+m).
+
+        The step is evaluated on a batch of one: under ``jacfwd`` a 0-dim
+        component times a Python float yields a float64 tangent, a 1-D one
+        stays float32."""
+        def step1(x1, u1):
+            return self.step(x1[None], u1[None])[0]
+
+        jx, ju = torch.func.jacfwd(step1, argnums=(0, 1))(x, u)
+        return torch.cat([jx, ju], dim=1)
+
+    def jacobian_xu_batch(self, x: Tensor, u: Tensor) -> Tensor:
+        """Batched fat Jacobian: (B,n), (B,m) -> (B,n,n+m)."""
+        return torch.func.vmap(self.jacobian_xu)(x, u)
+
+    def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
+        """Open-loop rollout: (n,), (T,m) -> the (T+1,n) state trajectory."""
+        xs = [x0]
+        for u in u_trj:
+            xs.append(self.step(xs[-1], u))
+        return torch.stack(xs)

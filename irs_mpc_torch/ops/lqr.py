@@ -1,0 +1,227 @@
+"""Time-varying LQR backward and forward passes.
+
+The problem is the canonical stage form of the JAX package's ``ops/lqr.py``:
+
+    min  sum_t [ x'Q_t x + u'R_t u + 2 x'N_t u + 2 q_t'x + 2 r_t'u ]
+         + x_T'Q_T x_T + 2 q_T'x_T
+    s.t. x_{t+1} = A_t x_t + B_t u_t + c_t,  x_0 given
+
+(no 1/2 factors).  ``riccati_backward`` follows the tensors' device: CUDA
+tensors go through the hand-written kernel (``cuda_riccati``), CPU tensors
+through the plain loop ``riccati_backward_plain``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import cuda_riccati
+from .linalg import solve_spd
+
+Tensor = torch.Tensor
+
+
+class LqrProblem(NamedTuple):
+    """Canonical affine-quadratic trajectory problem (see module docstring).
+
+    Shapes: A (T,n,n), B (T,n,m), c (T,n), Q (T,n,n), R (T,m,m), N (T,n,m),
+    q (T,n), r (T,m), Qf (n,n), qf (n,), x0 (n,).
+    """
+    A: Tensor
+    B: Tensor
+    c: Tensor
+    Q: Tensor
+    R: Tensor
+    N: Tensor
+    q: Tensor
+    r: Tensor
+    Qf: Tensor
+    qf: Tensor
+    x0: Tensor
+
+
+class LqrGains(NamedTuple):
+    """Affine feedback u_t = -(K_t x_t + k_t) and value function (P_t, p_t).
+
+    The CUDA kernel keeps P and p on chip, so they are None on that path."""
+    K: Tensor                  # (T, m, n)
+    k: Tensor                  # (T, m)
+    P: Optional[Tensor]        # (T+1, n, n)
+    p: Optional[Tensor]        # (T+1, n)
+
+
+def riccati_backward_plain(prob: LqrProblem) -> LqrGains:
+    """Sequential Riccati recursion, one plain loop step per knot.
+
+    With value function V_t(x) = x'P_t x + 2 p_t'x + const:
+        H = R_t + B'P B            (m,m)
+        G = N_t' + B'P A           (m,n)
+        g = r_t + B'(P c + p)      (m,)
+        K = H^{-1} G,  k = H^{-1} g
+        P_t = Q_t + A'P A - G'K    (symmetrised)
+        p_t = q_t + A'(P c + p) - G'k
+    """
+    T = prob.B.shape[0]
+    P, p = prob.Qf, prob.qf
+    Ks, ks, Ps, ps = [None] * T, [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        A, B, c = prob.A[t], prob.B[t], prob.c[t]
+        Q, R, N, q, r = prob.Q[t], prob.R[t], prob.N[t], prob.q[t], prob.r[t]
+        PB = P @ B
+        H = R + B.T @ PB
+        G = N.T + B.T @ (P @ A)
+        Pc_p = P @ c + p
+        g = r + B.T @ Pc_p
+        # Solve H [K k] = [G g] in one elimination.
+        Kk = solve_spd(H, torch.cat([G, g[:, None]], dim=1))
+        K, k = Kk[:, :-1], Kk[:, -1]
+        P_new = Q + A.T @ (P @ A) - G.T @ K
+        P_new = 0.5 * (P_new + P_new.T)
+        p_new = q + A.T @ Pc_p - G.T @ k
+        Ks[t], ks[t], Ps[t], ps[t] = K, k, P, p
+        P, p = P_new, p_new
+    return LqrGains(K=torch.stack(Ks), k=torch.stack(ks),
+                    P=torch.stack([P] + Ps), p=torch.stack([p] + ps))
+
+
+def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
+    """Riccati backward pass by the tensors' device.
+
+    CUDA tensors launch the hand-written kernel and raise if it cannot run;
+    CPU tensors run ``riccati_backward_plain``."""
+    if backend == "assoc":
+        raise NotImplementedError(
+            "the associative-scan Riccati pass is not ported yet")
+    if backend != "auto":
+        raise ValueError(f"riccati backend {backend!r} is not 'auto'")
+    device = prob.A.device
+    if device.type == "cuda":
+        K, k = cuda_riccati.riccati_backward_cuda(
+            LqrProblem(*(a.contiguous() for a in prob)))
+        return LqrGains(K=K, k=k, P=None, p=None)
+    if device.type == "cpu":
+        return riccati_backward_plain(prob)
+    raise ValueError(f"no Riccati backward pass for device {device}")
+
+
+def lqr_rollout_linear(prob: LqrProblem, gains: LqrGains):
+    """Roll the *linear* model under the affine feedback: the QP optimum.
+
+    Returns (x_trj (T+1,n), u_trj (T,m))."""
+    x = prob.x0
+    xs, us = [x], []
+    for t in range(prob.B.shape[0]):
+        u = -(gains.K[t] @ x + gains.k[t])
+        x = prob.A[t] @ x + prob.B[t] @ u + prob.c[t]
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs), torch.stack(us)
+
+
+def lqr_solve(prob: LqrProblem, backend: str = "auto"):
+    """Solve the unconstrained affine-quadratic problem exactly.
+    Returns (x_trj, u_trj, gains)."""
+    gains = riccati_backward(prob, backend)
+    x_trj, u_trj = lqr_rollout_linear(prob, gains)
+    return x_trj, u_trj, gains
+
+
+# ---------------------------------------------------------------------------
+# Problem builders
+# ---------------------------------------------------------------------------
+
+def build_tracking_problem(A, B, c, Q, Qd, R, x0, xd_trj) -> LqrProblem:
+    """Tracking problem: cost (x-xd)'Q(x-xd) + u'Ru, final Qd."""
+    T, n, m = B.shape
+    return LqrProblem(
+        A=A, B=B, c=c,
+        Q=Q.expand(T, n, n),
+        R=R.expand(T, m, m),
+        N=A.new_zeros((T, n, m)),
+        q=-(xd_trj[:-1] @ Q.T),
+        r=A.new_zeros((T, m)),
+        Qf=Qd,
+        qf=-(Qd @ xd_trj[-1]),
+        x0=x0,
+    )
+
+
+def build_delta_u_problem(A, B, c, Q, Qd, R, x0, xd_trj,
+                          indices_u_into_x) -> LqrProblem:
+    """Δu-cost problem via prev-input state augmentation.
+
+    The state is z = [x; w] with w_t = u_{t-1} (w_0 = x_0[indices_u]), so
+    the cost R on du = u_t - u_{t-1} becomes stage-quadratic with a cross
+    term: (u - w)'R(u - w) = u'Ru - 2 w'Ru + w'Rw.  Returns an augmented
+    problem of dim n+m; ``split_augmented`` recovers the x trajectory."""
+    T, n, m = B.shape
+    na = n + m
+    eye_m = torch.eye(m, dtype=A.dtype, device=A.device)
+
+    A_aug = A.new_zeros((T, na, na))
+    A_aug[:, :n, :n] = A
+    B_aug = A.new_zeros((T, na, m))
+    B_aug[:, :n, :] = B
+    B_aug[:, n:, :] = eye_m
+    c_aug = A.new_zeros((T, na))
+    c_aug[:, :n] = c
+
+    # Stage cost: x-tracking Q + w'Rw + u'Ru - 2 w'Ru.
+    Q_aug = A.new_zeros((T, na, na))
+    Q_aug[:, :n, :n] = Q
+    Q_aug[:, n:, n:] = R
+    N_aug = A.new_zeros((T, na, m))
+    N_aug[:, n:, :] = -R
+    q_aug = A.new_zeros((T, na))
+    q_aug[:, :n] = -(xd_trj[:-1] @ Q.T)
+
+    Qf_aug = A.new_zeros((na, na))
+    Qf_aug[:n, :n] = Qd
+    qf_aug = A.new_zeros((na,))
+    qf_aug[:n] = -(Qd @ xd_trj[-1])
+
+    return LqrProblem(
+        A=A_aug, B=B_aug, c=c_aug,
+        Q=Q_aug, R=R.expand(T, m, m), N=N_aug,
+        q=q_aug, r=A.new_zeros((T, m)),
+        Qf=Qf_aug, qf=qf_aug,
+        x0=torch.cat([x0, x0[indices_u_into_x]]))
+
+
+def build_prev_u_tracking_problem(A, B, c, Q, Qd, R, x0,
+                                  xd_trj) -> LqrProblem:
+    """Tracking problem (plain u'Ru cost) with a prev-input augmented state
+    z = [x; w], w_t = u_{t-1}, so that relative input bounds can box u - w.
+    w_0 is 0 and carries no cost."""
+    T, n, m = B.shape
+    na = n + m
+
+    A_aug = A.new_zeros((T, na, na))
+    A_aug[:, :n, :n] = A
+    B_aug = A.new_zeros((T, na, m))
+    B_aug[:, :n, :] = B
+    B_aug[:, n:, :] = torch.eye(m, dtype=A.dtype, device=A.device)
+    c_aug = A.new_zeros((T, na))
+    c_aug[:, :n] = c
+
+    Q_aug = A.new_zeros((T, na, na))
+    Q_aug[:, :n, :n] = Q
+    q_aug = A.new_zeros((T, na))
+    q_aug[:, :n] = -(xd_trj[:-1] @ Q.T)
+    Qf_aug = A.new_zeros((na, na))
+    Qf_aug[:n, :n] = Qd
+    qf_aug = A.new_zeros((na,))
+    qf_aug[:n] = -(Qd @ xd_trj[-1])
+
+    return LqrProblem(
+        A=A_aug, B=B_aug, c=c_aug,
+        Q=Q_aug, R=R.expand(T, m, m), N=A.new_zeros((T, na, m)),
+        q=q_aug, r=A.new_zeros((T, m)),
+        Qf=Qf_aug, qf=qf_aug,
+        x0=torch.cat([x0, A.new_zeros((m,))]))
+
+
+def split_augmented(x_aug_trj: Tensor, n: int) -> Tensor:
+    """Recover the physical state trajectory from an augmented solution."""
+    return x_aug_trj[:, :n]

@@ -1,0 +1,361 @@
+"""iRS-MPC driver: iterative randomized-smoothing LQR, unbounded feedback.
+
+One iteration is
+
+    sample -> batched step -> least-squares fit (A, B, c) -> tracking
+    problem -> Riccati backward pass -> linear plan -> line-searched
+    feedback rollout of the true dynamics -> 5-channel cost,
+
+all on the device of the solver's tensors.  The Riccati pass follows the
+device rule of ``ops.lqr.riccati_backward``: the CUDA kernel for CUDA
+tensors, the plain loop for CPU tensors.  Bounds, ``forward_mode="resolve"``,
+the associative-scan Riccati pass and sharding are not ported yet and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.base import System
+from ..ops import lqr as lqr_ops
+from ..ops.estimators import (SmoothingConfig, TvLinearization, decouple_AB,
+                              estimate_tv_matrices_fnom)
+
+Tensor = torch.Tensor
+
+# Bound magnitudes must stay below BOUND_BIG / 10 (the JAX package masks
+# unconstrained stages with BOUND_BIG).
+BOUND_BIG = 1e7
+
+
+@dataclasses.dataclass
+class IrsMpcParams:
+    """Optimal-control problem and algorithm configuration; the fields of
+    the JAX package's ``IrsMpcParams``.  Arrays may be numpy arrays or
+    tensors.  Bounds are (2, dim) arrays [lb; ub]; ``None`` disables them."""
+    Q: object = None
+    Qd: object = None
+    R: object = None
+    x0: object = None
+    xd_trj: object = None
+    u_trj_init: object = None
+
+    x_bounds_abs: Optional[object] = None
+    u_bounds_abs: Optional[object] = None
+    x_bounds_rel: Optional[object] = None
+    u_bounds_rel: Optional[object] = None
+    bounds_trust_region: bool = False
+
+    # Δu-cost mode: indices of actuated DOFs in x.  None => plain u'Ru cost.
+    indices_u_into_x: Optional[object] = None
+    # Unactuated DOFs in x, for the Qu/Qa cost-channel split.
+    unactuated_indices: Optional[object] = None
+
+    gradient_mode: str = "zero_order"
+    smoothing: SmoothingConfig = dataclasses.field(
+        default_factory=SmoothingConfig)
+    decouple_AB: bool = False
+    estimation_system: Optional[System] = None     # must be None
+
+    forward_mode: str = "feedback"
+    # Line-search step sizes; alpha=0 (last) keeps the nominal trajectory,
+    # so the accepted iterate never regresses.
+    line_search_alphas: tuple = (1.0, 0.6, 0.3, 0.1, 0.03, 0.0)
+    parallel_riccati: bool = False
+    # "auto": the CUDA kernel for CUDA tensors, the plain loop for CPU ones.
+    riccati_backend: str = "auto"
+    admm_iters: int = 60
+    admm_rho: float = 1.0
+    admm_over_relax: float = 1.0
+    seed: int = 0
+    mesh: Optional[object] = None                  # must be None
+    # The reference costs the final state with Q, not Qd; keep True to
+    # match its cost curves (initial pendulum cost 1856.1541).
+    report_final_cost_with_Q: bool = True
+    # Called after every iteration with (iteration, x_trj, u_trj) tensors.
+    iteration_callback: Optional[Callable] = None
+
+
+def _on(a, device, dtype=torch.float32) -> Tensor:
+    """``a``, an array-like or a tensor, as a ``dtype`` tensor on
+    ``device``."""
+    if not isinstance(a, Tensor):
+        a = np.asarray(a)
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
+class StepResult(NamedTuple):
+    """What one iteration returns, as tensors on the solver's device."""
+    x: Tensor            # (T+1, n) accepted state trajectory
+    u: Tensor            # (T, m) accepted inputs
+    cvec: Tensor         # (6,) accepted cost: total, then the 5 channels
+    best: Tensor         # () index of the accepted line-search lane
+    lane_costs: Tensor   # (A, 6) cost vector of every lane
+
+
+@dataclasses.dataclass
+class IterationStats:
+    """Decomposed cost channels {Qu, Qu_final, Qa, Qa_final, R}.  Without
+    an actuated/unactuated split the Qa channels carry the state cost."""
+    cost: float
+    cost_Qu: float
+    cost_Qu_final: float
+    cost_Qa: float
+    cost_Qa_final: float
+    cost_R: float
+    wall_time: float
+
+
+class IrsMpc:
+    """Construct with (system, params, device), then ``iterate(n) ->
+    (x_trj, u_trj, cost)``; history in ``x_trj_lst``/``u_trj_lst``/
+    ``cost_lst`` and best-so-far in ``*_best``.  Trajectories stay tensors
+    on ``device``."""
+
+    def __init__(self, system: System, params: IrsMpcParams,
+                 device="cpu"):
+        self.system = system
+        self.params = params
+        self.device = torch.device(device)
+        self._validate()
+
+        p, dev = params, self.device
+        self.Q, self.Qd, self.R = (_on(p.Q, dev), _on(p.Qd, dev),
+                                   _on(p.R, dev))
+        self.x0 = _on(p.x0, dev)
+        self.xd_trj = _on(p.xd_trj, dev)
+        self.u_trj = _on(p.u_trj_init, dev)
+        self.T = int(self.u_trj.shape[0])
+        self.idx_u = (None if p.indices_u_into_x is None
+                      else _on(p.indices_u_into_x, dev, torch.long))
+        self._aug = self.idx_u is not None
+        self._mask_u = torch.zeros(system.dim_x, device=dev)
+        if p.unactuated_indices is not None:
+            self._mask_u[_on(p.unactuated_indices, dev, torch.long)] = 1.0
+        self._alphas = torch.tensor(p.line_search_alphas, dtype=torch.float32,
+                                    device=dev)
+        # Array stds go to the device once, so that no iteration copies them.
+        sm = p.smoothing
+        def std(v):
+            return v if isinstance(v, (int, float)) else _on(v, dev)
+
+        self.smoothing = dataclasses.replace(sm, std_x=std(sm.std_x),
+                                             std_u=std(sm.std_u))
+
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(p.seed)
+        self.x_trj = system.rollout(self.x0, self.u_trj)
+        self.cost = float(self.eval_cost(self.x_trj, self.u_trj)[0])
+
+        self.x_trj_lst = [self.x_trj]
+        self.u_trj_lst = [self.u_trj]
+        self.cost_lst = [self.cost]
+        self.stats_lst: list[IterationStats] = []
+        self.x_trj_best = self.x_trj
+        self.u_trj_best = self.u_trj
+        self.cost_best = self.cost
+        self.iter = 1
+        self.start_time = time.time()
+
+    # ------------------------------------------------------------------
+    def _validate(self):
+        s, p = self.system, self.params
+        if s.dim_x == 0 or s.dim_u == 0:
+            raise RuntimeError("System has zero states or inputs.")
+        if np.shape(p.Q) != (s.dim_x, s.dim_x):
+            raise RuntimeError("Q must be dim_x x dim_x.")
+        if np.shape(p.Qd) != (s.dim_x, s.dim_x):
+            raise RuntimeError("Qd must be dim_x x dim_x.")
+        if np.shape(p.R) != (s.dim_u, s.dim_u):
+            raise RuntimeError("R must be dim_u x dim_u.")
+        try:
+            out = s.step(torch.zeros(s.dim_x), torch.zeros(s.dim_u))
+            if tuple(out.shape) != (s.dim_x,):
+                raise ValueError(f"step returned shape {tuple(out.shape)}")
+        except Exception as e:
+            raise RuntimeError(
+                "Could not evaluate dynamics. Have you implemented it?"
+            ) from e
+        for name in ("x_bounds_abs", "u_bounds_abs",
+                     "x_bounds_rel", "u_bounds_rel"):
+            b = getattr(p, name)
+            if b is None:
+                continue
+            if isinstance(b, Tensor):
+                b = b.detach().cpu().numpy()
+            mags = np.abs(np.asarray(b, np.float64))
+            mags = mags[np.isfinite(mags)]
+            if mags.size and mags.max() > BOUND_BIG / 10:
+                raise RuntimeError(
+                    f"{name} magnitude {mags.max():.3g} exceeds the "
+                    f"representable limit {BOUND_BIG / 10:.3g}; use "
+                    f"np.inf (or None) for unconstrained entries.")
+            raise NotImplementedError(
+                f"{name}: bounded solves (boxed ADMM) are not ported yet")
+        if p.forward_mode != "feedback":
+            raise NotImplementedError(
+                f"forward_mode={p.forward_mode!r} is not ported yet")
+        if p.parallel_riccati:
+            raise NotImplementedError(
+                "parallel_riccati (associative scan) is not ported yet")
+        if p.riccati_backend != "auto":
+            raise ValueError(f"riccati_backend {p.riccati_backend!r}: the "
+                             "port has only 'auto' (follows the device)")
+        if p.mesh is not None:
+            raise NotImplementedError("sharding over a mesh is not ported yet")
+        if p.estimation_system is not None:
+            raise NotImplementedError(
+                "a separate estimation system is not ported yet")
+
+    # ------------------------------------------------------------------
+    def eval_cost(self, x_trj: Tensor, u_trj: Tensor):
+        """Returns (total, cost_Qu, cost_Qu_final, cost_Qa, cost_Qa_final,
+        cost_R), each of shape (...) for x (..., T+1, n), u (..., T, m).
+
+        Running state cost uses Q; the final state uses Q under
+        ``report_final_cost_with_Q`` else Qd.  In Δu mode the R cost is
+        du'R du with du_0 = u_0 - x_0[idx]."""
+        mask_u = self._mask_u
+        ex = x_trj[..., :-1, :] - self.xd_trj[:-1]
+        Qf = self.Q if self.params.report_final_cost_with_Q else self.Qd
+        ef = x_trj[..., -1, :] - self.xd_trj[-1]
+
+        def quad(e, M):
+            return torch.einsum("...i,ij,...j->...", e, M, e)
+
+        cx = quad(ex, self.Q).sum(-1)
+        cxf = quad(ef, Qf)
+        cost_Qu = quad(ex * mask_u, self.Q).sum(-1)
+        cost_Quf = quad(ef * mask_u, Qf)
+        cost_Qa = cx - cost_Qu
+        cost_Qaf = cxf - cost_Quf
+
+        if self.idx_u is None:
+            cost_R = quad(u_trj, self.R).sum(-1)
+        else:
+            u_prev = torch.cat([x_trj[..., :1, self.idx_u],
+                                u_trj[..., :-1, :]], dim=-2)
+            cost_R = quad(u_trj - u_prev, self.R).sum(-1)
+        total = cost_Qu + cost_Qa + cost_Quf + cost_Qaf + cost_R
+        return total, cost_Qu, cost_Quf, cost_Qa, cost_Qaf, cost_R
+
+    # ------------------------------------------------------------------
+    def _build_problem(self, tv: TvLinearization, x_trj):
+        if self.idx_u is not None:
+            return lqr_ops.build_delta_u_problem(
+                tv.A, tv.B, tv.c, self.Q, self.Qd, self.R,
+                x_trj[0], self.xd_trj, self.idx_u)
+        return lqr_ops.build_tracking_problem(
+            tv.A, tv.B, tv.c, self.Q, self.Qd, self.R,
+            x_trj[0], self.xd_trj)
+
+    def _u_bounds_for_rollout(self, x_trj):
+        """Per-knot (lb, ub) input bounds for the feedback rollout.  Every
+        bound kind raises in ``_validate`` for now, so these are ±inf."""
+        T, m = self.T, self.system.dim_u
+        lb = torch.full((T, m), -torch.inf, device=self.device)
+        ub = torch.full((T, m), torch.inf, device=self.device)
+        return lb, ub
+
+    def _iteration(self, x_trj, u_trj, it, perturbations=None) -> StepResult:
+        """One smoothing + descent iteration, all on the device.
+        ``perturbations`` is handed to the estimator (see
+        ``estimate_tv_matrices_fnom``)."""
+        p = self.params
+        sys = self.system
+        tv, f_nom = estimate_tv_matrices_fnom(
+            sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
+            self.smoothing, perturbations)
+        if p.decouple_AB:
+            tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys, f_nom=f_nom)
+
+        prob = self._build_problem(tv, x_trj)
+        gains = lqr_ops.riccati_backward(prob)
+        z_plan, u_plan = lqr_ops.lqr_rollout_linear(prob, gains)
+        # Sanitise: a degenerate estimate must not poison the alpha=0 lane,
+        # which reproduces the nominal trajectory exactly.
+        K = torch.nan_to_num(gains.K)
+        z_plan = torch.nan_to_num(z_plan)
+        u_plan = torch.nan_to_num(u_plan)
+
+        # Forward pass: roll the true dynamics under affine feedback around
+        # the plan, u_t = u*_t - K_t (z_t - z*_t), for every step size alpha
+        # at once (one lane per alpha).  Alpha blends the plan toward the
+        # nominal; alpha=0 reproduces the nominal.
+        lb, ub = self._u_bounds_for_rollout(x_trj)
+        n_lanes = self._alphas.shape[0]
+        if self._aug:
+            u_prev0 = x_trj[0, self.idx_u]
+            w_nom = torch.cat([u_prev0[None], u_trj[:-1]], dim=0)
+            z_nom = torch.cat([x_trj[:-1], w_nom], dim=1)
+            u_prev = u_prev0.expand(n_lanes, -1)
+        else:
+            z_nom = x_trj[:-1]
+        a3 = self._alphas[:, None, None]
+        z_ref = z_nom + a3 * (z_plan[:-1] - z_nom)         # (A, T, nz)
+        u_ref = u_trj + a3 * (u_plan - u_trj)              # (A, T, m)
+
+        x = x_trj[0].expand(n_lanes, -1)
+        xs, us = [x], []
+        for t in range(self.T):
+            z = torch.cat([x, u_prev], dim=1) if self._aug else x
+            u = u_ref[:, t] - (z - z_ref[:, t]) @ K[t].T
+            u = torch.clamp(u, lb[t], ub[t])
+            x = sys.step_batch(x, u)
+            xs.append(x)
+            us.append(u)
+            u_prev = u
+        xs_all = torch.stack(xs, dim=1)                    # (A, T+1, n)
+        us_all = torch.stack(us, dim=1)                    # (A, T, m)
+        costs_all = torch.stack(self.eval_cost(xs_all, us_all), dim=1)
+
+        totals = torch.where(torch.isnan(costs_all[:, 0]), torch.inf,
+                             costs_all[:, 0])
+        best = torch.argmin(totals).reshape(1)
+        return StepResult(x=xs_all.index_select(0, best)[0],
+                          u=us_all.index_select(0, best)[0],
+                          cvec=costs_all.index_select(0, best)[0],
+                          best=best[0], lane_costs=costs_all)
+
+    # ------------------------------------------------------------------
+    def iterate(self, max_iterations: int, verbose: bool = True):
+        """Run exactly ``max_iterations`` descent iterations.  The only host
+        read per iteration is the accepted cost vector."""
+        for _ in range(max_iterations):
+            t0 = time.time()
+            step = self._iteration(self.x_trj, self.u_trj, self.iter)
+            x_new, u_new = step.x, step.u
+            total, c_qu, c_quf, c_qa, c_qaf, c_r = step.cvec.tolist()
+            wall = time.time() - t0
+            if verbose:
+                print(f"Iteration: {self.iter:02d} || Current Cost: "
+                      f"{total:.6f} || Elapsed time: "
+                      f"{time.time() - self.start_time:.5f}")
+
+            self.x_trj_lst.append(x_new)
+            self.u_trj_lst.append(u_new)
+            self.cost_lst.append(total)
+            self.stats_lst.append(IterationStats(
+                cost=total, cost_Qu=c_qu, cost_Qu_final=c_quf,
+                cost_Qa=c_qa, cost_Qa_final=c_qaf, cost_R=c_r,
+                wall_time=wall))
+
+            if total < self.cost_best:
+                self.cost_best = total
+                self.x_trj_best = x_new
+                self.u_trj_best = u_new
+
+            if self.params.iteration_callback is not None:
+                self.params.iteration_callback(self.iter, x_new, u_new)
+
+            self.cost = total
+            self.x_trj = x_new
+            self.u_trj = u_new
+            self.iter += 1
+
+        return self.x_trj, self.u_trj, self.cost
