@@ -17,12 +17,15 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .models.base import System  # noqa: E402
+from .models.contact.systems import make_planar_hand  # noqa: E402
 from .models.pendulum import make_pendulum  # noqa: E402
+from .ops.admm import BoxBounds, solve_boxed_tvlqr  # noqa: E402
 from .ops.estimators import SmoothingConfig, estimate_tv_matrices  # noqa: E402
 from .ops import lqr  # noqa: E402
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats  # noqa: E402
 
 __all__ = [
-    "System", "make_pendulum", "SmoothingConfig", "estimate_tv_matrices",
-    "lqr", "IrsMpc", "IrsMpcParams", "IterationStats",
+    "System", "make_pendulum", "make_planar_hand", "SmoothingConfig",
+    "estimate_tv_matrices", "lqr", "BoxBounds", "solve_boxed_tvlqr",
+    "IrsMpc", "IrsMpcParams", "IterationStats",
 ]

@@ -1,14 +1,21 @@
-"""Carry problems, parameters and solver state from the JAX package over.
+"""Carry models, problems, parameters and solver state from the JAX
+package over.
 
-The JAX objects are read duck-typed, through ``getattr`` and
-``np.asarray``; this module imports nothing of JAX.  The slice has no
-learned weights: what crosses is the problem and the solver's iterate.
+The JAX objects are read duck-typed, through ``getattr``, ``np.asarray``
+and their class names; this module imports nothing of JAX.  The port has no
+learned weights: what crosses is the model description, the problem and the
+solver's iterate.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .models.contact import geometry as geom
+from .models.contact.quasistatic import (ContactPair, ModelInstance,
+                                         QuasistaticModel)
 from .ops.estimators import SmoothingConfig, inv_sqrt_decay
 from .ops.lqr import LqrProblem
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats
@@ -39,22 +46,88 @@ def _is_default_decay(decay) -> bool:
                        1.0 / np.sqrt(its.astype(np.float64)), rtol=1e-6)
 
 
-def params_from_jax(p, device="cpu") -> IrsMpcParams:
+def _plain(v):
+    """A dataclass field value as plain Python: tuples of floats/ints."""
+    if isinstance(v, (tuple, list)) or hasattr(v, "__array__"):
+        a = np.asarray(v)
+        if a.ndim == 0:
+            return a.item()
+        return tuple(x.item() if hasattr(x, "item") else x for x in a)
+    if isinstance(v, (np.floating, np.integer)):
+        return v.item()
+    return v
+
+
+def _carry(obj, cls):
+    """``cls`` built from the same-named fields of the dataclass ``obj``."""
+    return cls(**{f.name: _plain(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+_SHAPES = {c.__name__: c for c in (geom.Circle, geom.Capsule, geom.Box,
+                                   geom.HalfSpace)}
+_BODIES = {c.__name__: c for c in (geom.StaticBody, geom.FreeBody2D,
+                                   geom.Arm2D, geom.PrismaticFinger2D)}
+
+
+def model_from_jax(m) -> QuasistaticModel:
+    """A torch ``QuasistaticModel`` from a JAX one: its bodies, shapes,
+    pairs and model instances carried dataclass to dataclass, as Python
+    values.  Raises on a body or shape kind the port does not have."""
+    def body(b):
+        kind = type(b).__name__
+        if kind not in _BODIES:
+            raise TypeError(f"model_from_jax: no body kind {kind}")
+        cls = _BODIES[kind]
+        fields = {f.name: _plain(getattr(b, f.name))
+                  for f in dataclasses.fields(cls) if f.name != "shapes"}
+        if hasattr(b, "shapes") and "shapes" in {
+                f.name for f in dataclasses.fields(cls)}:
+            shapes = []
+            for s in b.shapes:
+                if type(s).__name__ not in _SHAPES:
+                    raise TypeError(f"model_from_jax: no shape kind "
+                                    f"{type(s).__name__}")
+                shapes.append(_carry(s, _SHAPES[type(s).__name__]))
+            fields["shapes"] = tuple(shapes)
+        return cls(**fields)
+
+    return QuasistaticModel(
+        name=m.name, h=float(m.h), nq=int(m.nq),
+        models=tuple(_carry(mi, ModelInstance) for mi in m.models),
+        bodies=tuple(body(b) for b in m.bodies),
+        pairs=tuple(_carry(pr, ContactPair) for pr in m.pairs),
+        gravity=_plain(m.gravity), qp_iters=int(m.qp_iters),
+        qp_iters_ws=int(m.qp_iters_ws), contact_model=str(m.contact_model),
+        canon_warm_duals=bool(m.canon_warm_duals))
+
+
+def params_from_jax(p, device="cpu", decay=None,
+                    estimation_system=None) -> IrsMpcParams:
     """A torch ``IrsMpcParams`` on ``device`` from a JAX ``IrsMpcParams``.
 
-    Raises if the smoothing decay is not the default 1/sqrt(it) (a closure
-    cannot be carried across) or if a mesh, an estimation system or an
-    iteration callback is set.  The JAX Riccati backends ("scan", "pallas",
-    "auto") all become the port's "auto"; "assoc" stays and is refused by
-    the solver until it is ported."""
-    for name in ("mesh", "estimation_system", "iteration_callback"):
+    A closure cannot be carried across: a smoothing decay other than the
+    default 1/sqrt(it) needs its torch counterpart as ``decay``, and a JAX
+    ``estimation_system`` needs the torch one as ``estimation_system``
+    (e.g. ``model.estimation_surrogate()`` of the carried model).  Raises
+    where either is missing, and if a mesh or an iteration callback is
+    set.  The JAX Riccati backends ("scan", "pallas", "auto") all become
+    the port's "auto"; "assoc" stays and is refused by the solver until it
+    is ported."""
+    for name in ("mesh", "iteration_callback"):
         if getattr(p, name, None) is not None:
             raise ValueError(f"params_from_jax: {name} cannot be carried "
                              "across")
+    if p.estimation_system is not None and estimation_system is None:
+        raise ValueError("params_from_jax: the estimation_system cannot be "
+                         "carried across; pass its torch counterpart")
     sm = p.smoothing
-    if not _is_default_decay(sm.decay):
-        raise ValueError("params_from_jax: only the default 1/sqrt(it) "
-                         "variance decay can be carried across")
+    if decay is None:
+        if not _is_default_decay(sm.decay):
+            raise ValueError("params_from_jax: only the default 1/sqrt(it) "
+                             "variance decay can be carried across; pass "
+                             "the torch decay")
+        decay = inv_sqrt_decay
 
     def std(v):
         a = np.asarray(v, np.float32)
@@ -65,7 +138,7 @@ def params_from_jax(p, device="cpu") -> IrsMpcParams:
 
     smoothing = SmoothingConfig(
         num_samples=int(sm.num_samples), std_x=std(sm.std_x),
-        std_u=std(sm.std_u), damp=float(sm.damp),
+        std_u=std(sm.std_u), decay=decay, damp=float(sm.damp),
         decay_std_x=bool(sm.decay_std_x),
         zero_order_B_A_source=str(sm.zero_order_B_A_source))
     return IrsMpcParams(
@@ -81,6 +154,7 @@ def params_from_jax(p, device="cpu") -> IrsMpcParams:
         gradient_mode=str(p.gradient_mode),
         smoothing=smoothing,
         decouple_AB=bool(p.decouple_AB),
+        estimation_system=estimation_system,
         forward_mode=str(p.forward_mode),
         line_search_alphas=tuple(float(a) for a in p.line_search_alphas),
         parallel_riccati=bool(p.parallel_riccati),

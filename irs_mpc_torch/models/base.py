@@ -31,6 +31,26 @@ class System:
     h: float
     step: StepFn
     projection: Optional[ProjectionFn] = None
+    # Warm-started step for serial rollout chains, (x, u, carry) ->
+    # (x_next, carry), over leading batch dims; ``ws_init_fn(device)``
+    # builds the initial carry.  A system whose step is an iterative solve
+    # (contact QPs) starts each knot from the previous knot's solution.
+    # Must agree with ``step`` to solver tolerance; not differentiable, so
+    # Jacobians always go through ``step``.
+    step_ws_fn: Optional[Callable] = None
+    ws_init_fn: Optional[Callable] = None
+    # Fused Monte-Carlo estimation sweep of solver-backed systems:
+    #   est_sweep_fn(x_nom (T,n), u_nom (T,m), dx (T,S,n) | None,
+    #                du (T,S,m)) -> (f_nom (T,n), fd (T,S,n)),
+    # the nominal steps at full solver accuracy and the sample steps in one
+    # batched pass.  ``dx=None`` says the samples share the nominal state.
+    est_sweep_fn: Optional[Callable] = None
+    # Whole-chain line-searched feedback rollout,
+    #   (x0, u_prev0, K, z_ref_x, z_ref_w | None, u_ref, lb, ub,
+    #    rel_lb | None, rel_ub | None) -> (xs (A,T+1,n), us (A,T,m)),
+    # which the solver takes for CUDA tensors (kernel K4 for contact
+    # models).  Must match the solver's plain rollout loop.
+    ls_rollout_fn: Optional[Callable] = None
 
     def step_batch(self, x: Tensor, u: Tensor) -> Tensor:
         """Batched dynamics: (B,n), (B,m) -> (B,n)."""
@@ -53,8 +73,15 @@ class System:
         return torch.func.vmap(self.jacobian_xu)(x, u)
 
     def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
-        """Open-loop rollout: (n,), (T,m) -> the (T+1,n) state trajectory."""
+        """Open-loop rollout: (n,), (T,m) -> the (T+1,n) state trajectory,
+        through the warm-started chain when the system has one."""
         xs = [x0]
-        for u in u_trj:
-            xs.append(self.step(xs[-1], u))
+        if self.step_ws_fn is not None:
+            ws = self.ws_init_fn(x0.device)
+            for u in u_trj:
+                x, ws = self.step_ws_fn(xs[-1], u, ws)
+                xs.append(x)
+        else:
+            for u in u_trj:
+                xs.append(self.step(xs[-1], u))
         return torch.stack(xs)

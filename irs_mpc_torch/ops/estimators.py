@@ -122,23 +122,26 @@ def draw_perturbations(generator: torch.Generator, sx: Tensor, su: Tensor,
     return dx, du
 
 
+def _draws(system, x_trj, generator, it, cfg, perturbations):
+    if perturbations is not None:
+        return perturbations
+    sx, su = cfg.stds(it, system.dim_x, system.dim_u, x_trj.device)
+    return draw_perturbations(generator, sx, su, x_trj.shape[0] - 1,
+                              cfg.num_samples)
+
+
 def _estimate_flat(system: System, mode: str, x_trj, u_trj, generator, it,
-                   cfg: SmoothingConfig, perturbations):
+                   cfg: SmoothingConfig, perturbations, need_A: bool):
     """Estimation sweep over all knots as one flat batch.  Returns
-    (AB (T,n,n+m), f_nom (T,n))."""
-    T = u_trj.shape[0]
-    n = system.dim_x
+    (AB (T,n,n+m), f_nom (T,n)); with ``need_A=False`` the A block of
+    zero_order_B is zero (the caller overwrites it)."""
     x_nom = x_trj[:-1]
     f_nom = system.step_batch(x_nom, u_trj)
 
     if mode == "exact":
         return system.jacobian_xu_batch(x_nom, u_trj), f_nom
 
-    if perturbations is None:
-        sx, su = cfg.stds(it, system.dim_x, system.dim_u, x_trj.device)
-        dx, du = draw_perturbations(generator, sx, su, T, cfg.num_samples)
-    else:
-        dx, du = perturbations
+    dx, du = _draws(system, x_trj, generator, it, cfg, perturbations)
     # Projection applies only where the reference estimators use it
     # (first_order and the generic zero_order).
     if system.projection is not None and mode in ("first_order",
@@ -160,15 +163,46 @@ def _estimate_flat(system: System, mode: str, x_trj, u_trj, generator, it,
         ub = u_trj[:, None] + du
         fd = _flat(system.step_batch, xb, ub)
         B_hat = _fit_lstsq(du, fd - f_nom[:, None])
-        if cfg.zero_order_B_A_source == "first_order":
-            A_hat = _flat(system.jacobian_xu_batch, xb, ub).mean(dim=1)
-        else:
-            A_hat = system.jacobian_xu_batch(x_nom, u_trj)
-        AB = torch.cat([A_hat[:, :, :n], B_hat], dim=2)
+        AB = torch.cat([_A_hat(system, cfg, x_nom, u_trj, du, need_A),
+                        B_hat], dim=2)
     else:                                             # zero_order_AB
         fd = _flat(system.step_batch, xp, up)
         AB = _fit_lstsq(torch.cat([dx, du], dim=2), fd - f_nom[:, None],
                         damp=cfg.damp)
+    return AB, f_nom
+
+
+def _A_hat(system, cfg, x_nom, u_nom, du, need_A):
+    """The A block of zero_order_B: the exact Jacobian at the nominal, or
+    the mean Jacobian over the input samples; zeros without ``need_A``."""
+    T, n = x_nom.shape
+    if not need_A:
+        return x_nom.new_zeros((T, n, n))
+    if cfg.zero_order_B_A_source == "first_order":
+        xb = x_nom[:, None].expand(du.shape[:2] + (n,))
+        ub = u_nom[:, None] + du
+        return _flat(system.jacobian_xu_batch, xb, ub).mean(dim=1)[:, :, :n]
+    return system.jacobian_xu_batch(x_nom, u_nom)[:, :, :n]
+
+
+def _estimate_fused(system: System, mode: str, x_trj, u_trj, generator, it,
+                    cfg: SmoothingConfig, perturbations, need_A: bool):
+    """Zero-order estimation through the system's fused sweep hook: one
+    ``est_sweep_fn`` call gives the nominal steps at full solver accuracy
+    and every sample step; the per-knot fits run on the deltas.  Returns
+    (AB (T,n,n+m), f_nom (T,n)).  The draws are those of the flat path
+    (dx, then du)."""
+    dx, du = _draws(system, x_trj, generator, it, cfg, perturbations)
+    f_nom, fd = system.est_sweep_fn(
+        x_trj[:-1], u_trj, None if mode == "zero_order_B" else dx, du)
+    D = fd - f_nom[:, None, :]
+    if mode == "zero_order":
+        AB = _fit_lstsq(torch.cat([dx, du], dim=2), D)
+    elif mode == "zero_order_AB":
+        AB = _fit_lstsq(torch.cat([dx, du], dim=2), D, damp=cfg.damp)
+    else:                                             # zero_order_B
+        AB = torch.cat([_A_hat(system, cfg, x_trj[:-1], u_trj, du, need_A),
+                        _fit_lstsq(du, D)], dim=2)
     return AB, f_nom
 
 
@@ -180,19 +214,26 @@ def _affine_c(A, B, f_nom, x_nom, u_nom):
 def estimate_tv_matrices_fnom(
         system: System, mode: str, x_trj: Tensor, u_trj: Tensor,
         generator: Optional[torch.Generator], it, cfg: SmoothingConfig,
-        perturbations: Optional[tuple[Tensor, Tensor]] = None):
+        perturbations: Optional[tuple[Tensor, Tensor]] = None,
+        need_A: bool = True):
     """Estimate (A_t, B_t, c_t); returns ``(tv, f_nom)`` with f_nom (T,n)
     the nominal steps, reusable by ``decouple_AB``.
 
     ``it`` is the 1-based iteration count that drives the variance decay.
     ``perturbations=(dx (T,S,n), du (T,S,m))`` supplies the scaled sample
-    perturbations instead of drawing them from ``generator``."""
+    perturbations instead of drawing them from ``generator``.  A system
+    with an ``est_sweep_fn`` and no projection takes the fused sweep in
+    the zero-order modes.  ``need_A=False`` skips zero_order_B's A (the
+    caller is about to overwrite it, as ``decouple_AB`` does)."""
     if mode not in GRADIENT_MODES:
         raise ValueError(
             f"gradient mode {mode!r} not in {list(GRADIENT_MODES)}")
     n = system.dim_x
-    AB, f_nom = _estimate_flat(system, mode, x_trj, u_trj, generator, it,
-                               cfg, perturbations)
+    fused = (system.est_sweep_fn is not None and system.projection is None
+             and mode in ("zero_order", "zero_order_B", "zero_order_AB"))
+    estimate = _estimate_fused if fused else _estimate_flat
+    AB, f_nom = estimate(system, mode, x_trj, u_trj, generator, it, cfg,
+                         perturbations, need_A)
     A, B = AB[:, :, :n], AB[:, :, n:]
     return TvLinearization(A=A, B=B, c=_affine_c(A, B, f_nom, x_trj[:-1],
                                                  u_trj)), f_nom

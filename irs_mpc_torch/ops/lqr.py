@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import cuda_riccati
+from . import _nvcc, cuda_riccati
 from .linalg import solve_spd
 
 Tensor = torch.Tensor
@@ -96,13 +96,59 @@ def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
     if backend != "auto":
         raise ValueError(f"riccati backend {backend!r} is not 'auto'")
     device = prob.A.device
-    if device.type == "cuda":
+    if _nvcc.on_card(prob.A):
         K, k = cuda_riccati.riccati_backward_cuda(
             LqrProblem(*(a.contiguous() for a in prob)))
         return LqrGains(K=K, k=k, P=None, p=None)
     if device.type == "cpu":
         return riccati_backward_plain(prob)
     raise ValueError(f"no Riccati backward pass for device {device}")
+
+
+class RiccatiFactorization(NamedTuple):
+    """Sweep-invariant Riccati data (depends only on A, B, Q, R, N, Qf).
+
+    ADMM box penalties change only the linear cost terms (q, r, qf) from
+    one sweep to the next, so K, H, G and P are factored once and each
+    sweep re-solves the affine recursion (``riccati_linear``)."""
+    K: Tensor   # (T, m, n)
+    H: Tensor   # (T, m, m)
+    G: Tensor   # (T, m, n)
+    P: Tensor   # (T+1, n, n)  (P[t] = value Hessian at time t)
+
+
+def riccati_factorize(prob: LqrProblem) -> RiccatiFactorization:
+    """Backward pass over the quadratic terms only (q/r/qf never read)."""
+    T = prob.B.shape[0]
+    P = prob.Qf
+    Ks, Hs, Gs, Ps = [None] * T, [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        A, B = prob.A[t], prob.B[t]
+        H = prob.R[t] + B.T @ (P @ B)
+        G = prob.N[t].T + B.T @ (P @ A)
+        K = solve_spd(H, G)
+        P_new = prob.Q[t] + A.T @ (P @ A) - G.T @ K
+        Ks[t], Hs[t], Gs[t], Ps[t] = K, H, G, P
+        P = 0.5 * (P_new + P_new.T)
+    return RiccatiFactorization(K=torch.stack(Ks), H=torch.stack(Hs),
+                                G=torch.stack(Gs),
+                                P=torch.stack([P] + Ps))
+
+
+def riccati_linear(prob: LqrProblem, fac: RiccatiFactorization) -> LqrGains:
+    """The (k, p) recursion of ``riccati_backward_plain`` with (K, H, G, P)
+    taken from ``fac``."""
+    T = prob.B.shape[0]
+    p = prob.qf
+    ks, ps = [None] * T, [None] * T
+    for t in reversed(range(T)):
+        Pc_p = fac.P[t + 1] @ prob.c[t] + p
+        g = prob.r[t] + prob.B[t].T @ Pc_p
+        k = solve_spd(fac.H[t], g)
+        ks[t], ps[t] = k, p
+        p = prob.q[t] + prob.A[t].T @ Pc_p - fac.G[t].T @ k
+    return LqrGains(K=fac.K, k=torch.stack(ks), P=fac.P,
+                    p=torch.stack([p] + ps))
 
 
 def lqr_rollout_linear(prob: LqrProblem, gains: LqrGains):

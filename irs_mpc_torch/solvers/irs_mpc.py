@@ -1,15 +1,19 @@
-"""iRS-MPC driver: iterative randomized-smoothing LQR, unbounded feedback.
+"""iRS-MPC solver: iterative randomized-smoothing LQR with projected
+feedback.
 
 One iteration is
 
-    sample -> batched step -> least-squares fit (A, B, c) -> tracking
-    problem -> Riccati backward pass -> linear plan -> line-searched
-    feedback rollout of the true dynamics -> 5-channel cost,
+    sample -> batched step (or the system's fused estimation sweep) ->
+    least-squares fit (A, B, c) -> tracking problem -> Riccati backward
+    pass, or boxed ADMM when there are bounds -> linear plan ->
+    line-searched feedback rollout of the true dynamics, clipped to the
+    input bounds -> 5-channel cost,
 
-all on the device of the solver's tensors.  The Riccati pass follows the
-device rule of ``ops.lqr.riccati_backward``: the CUDA kernel for CUDA
-tensors, the plain loop for CPU tensors.  Bounds, ``forward_mode="resolve"``,
-the associative-scan Riccati pass and sharding are not ported yet and raise
+all on the device of the solver's tensors.  Each solve follows the device
+rule of its module: hand-written CUDA kernels for CUDA tensors (K1 Riccati,
+K2 batched contact QPs, K3 boxed ADMM, K4 the whole contact line search),
+plain PyTorch for CPU tensors.  ``forward_mode="resolve"``, the
+associative-scan Riccati pass and sharding are not ported yet and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from ..models.base import System
+from ..ops import _nvcc
+from ..ops import admm as admm_ops
 from ..ops import lqr as lqr_ops
 from ..ops.estimators import (SmoothingConfig, TvLinearization, decouple_AB,
                               estimate_tv_matrices_fnom)
@@ -60,7 +66,10 @@ class IrsMpcParams:
     smoothing: SmoothingConfig = dataclasses.field(
         default_factory=SmoothingConfig)
     decouple_AB: bool = False
-    estimation_system: Optional[System] = None     # must be None
+    # Cheaper surrogate dynamics for the Monte-Carlo estimation sweep only
+    # (e.g. a contact model with fewer QP iterations); rollouts and costs
+    # always use the true system.
+    estimation_system: Optional[System] = None
 
     forward_mode: str = "feedback"
     # Line-search step sizes; alpha=0 (last) keeps the nominal trajectory,
@@ -69,7 +78,7 @@ class IrsMpcParams:
     parallel_riccati: bool = False
     # "auto": the CUDA kernel for CUDA tensors, the plain loop for CPU ones.
     riccati_backend: str = "auto"
-    admm_iters: int = 60
+    admm_iters: int = 60                 # boxed-QP sweeps
     admm_rho: float = 1.0
     admm_over_relax: float = 1.0
     seed: int = 0
@@ -133,7 +142,10 @@ class IrsMpc:
         self.T = int(self.u_trj.shape[0])
         self.idx_u = (None if p.indices_u_into_x is None
                       else _on(p.indices_u_into_x, dev, torch.long))
-        self._aug = self.idx_u is not None
+        # The QP state is augmented with a prev-input block w_t = u_{t-1}
+        # when the Δu cost needs it or relative input bounds must be
+        # enforced in plain-u mode.
+        self._aug = self.idx_u is not None or p.u_bounds_rel is not None
         self._mask_u = torch.zeros(system.dim_x, device=dev)
         if p.unactuated_indices is not None:
             self._mask_u[_on(p.unactuated_indices, dev, torch.long)] = 1.0
@@ -174,7 +186,8 @@ class IrsMpc:
         if np.shape(p.R) != (s.dim_u, s.dim_u):
             raise RuntimeError("R must be dim_u x dim_u.")
         try:
-            out = s.step(torch.zeros(s.dim_x), torch.zeros(s.dim_u))
+            out = s.step(torch.zeros(s.dim_x, device=self.device),
+                         torch.zeros(s.dim_u, device=self.device))
             if tuple(out.shape) != (s.dim_x,):
                 raise ValueError(f"step returned shape {tuple(out.shape)}")
         except Exception as e:
@@ -195,8 +208,6 @@ class IrsMpc:
                     f"{name} magnitude {mags.max():.3g} exceeds the "
                     f"representable limit {BOUND_BIG / 10:.3g}; use "
                     f"np.inf (or None) for unconstrained entries.")
-            raise NotImplementedError(
-                f"{name}: bounded solves (boxed ADMM) are not ported yet")
         if p.forward_mode != "feedback":
             raise NotImplementedError(
                 f"forward_mode={p.forward_mode!r} is not ported yet")
@@ -208,9 +219,6 @@ class IrsMpc:
                              "port has only 'auto' (follows the device)")
         if p.mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported yet")
-        if p.estimation_system is not None:
-            raise NotImplementedError(
-                "a separate estimation system is not ported yet")
 
     # ------------------------------------------------------------------
     def eval_cost(self, x_trj: Tensor, u_trj: Tensor):
@@ -246,21 +254,88 @@ class IrsMpc:
 
     # ------------------------------------------------------------------
     def _build_problem(self, tv: TvLinearization, x_trj):
+        args = (tv.A, tv.B, tv.c, self.Q, self.Qd, self.R, x_trj[0],
+                self.xd_trj)
         if self.idx_u is not None:
-            return lqr_ops.build_delta_u_problem(
-                tv.A, tv.B, tv.c, self.Q, self.Qd, self.R,
-                x_trj[0], self.xd_trj, self.idx_u)
-        return lqr_ops.build_tracking_problem(
-            tv.A, tv.B, tv.c, self.Q, self.Qd, self.R,
-            x_trj[0], self.xd_trj)
+            return lqr_ops.build_delta_u_problem(*args, self.idx_u)
+        if self._aug:
+            # Plain u'Ru cost, but rel input bounds need the prev-u block.
+            return lqr_ops.build_prev_u_tracking_problem(*args)
+        return lqr_ops.build_tracking_problem(*args)
+
+    def _bound(self, name):
+        b = getattr(self.params, name)
+        return None if b is None else _on(b, self.device)
+
+    def _has_bounds(self):
+        p = self.params
+        return any(b is not None for b in (p.x_bounds_abs, p.u_bounds_abs,
+                                           p.x_bounds_rel, p.u_bounds_rel))
 
     def _u_bounds_for_rollout(self, x_trj):
-        """Per-knot (lb, ub) input bounds for the feedback rollout.  Every
-        bound kind raises in ``_validate`` for now, so these are ±inf."""
+        """Per-knot (lb, ub) input bounds for the projected-feedback
+        rollout from the abs bounds, recentred on the nominal under
+        ``bounds_trust_region``."""
         T, m = self.T, self.system.dim_u
         lb = torch.full((T, m), -torch.inf, device=self.device)
         ub = torch.full((T, m), torch.inf, device=self.device)
+        b = self._bound("u_bounds_abs")
+        if b is not None:
+            if self.params.bounds_trust_region:
+                centre = (x_trj[:-1, self.idx_u] if self.idx_u is not None
+                          else torch.zeros((T, m), device=self.device))
+                lb = torch.maximum(lb, centre + b[0])
+                ub = torch.minimum(ub, centre + b[1])
+            else:
+                lb = torch.maximum(lb, b[0])
+                ub = torch.minimum(ub, b[1])
         return lb, ub
+
+    def _box_bounds(self, x_trj) -> admm_ops.BoxBounds:
+        """Per-knot BoxBounds of the trajectory QP, recentred on the
+        nominal trajectory under ``bounds_trust_region``."""
+        p = self.params
+        T, n, m = self.T, self.system.dim_x, self.system.dim_u
+
+        def box(b, rows, dim):
+            return torch.stack([b[0].expand(rows, dim), b[1].expand(rows, dim)])
+
+        bx = self._bound("x_bounds_abs")
+        if bx is not None:
+            bx = (torch.stack([x_trj + bx[0], x_trj + bx[1]])
+                  if p.bounds_trust_region else box(bx, T + 1, n))
+        bu = self._bound("u_bounds_abs")
+        if bu is not None:
+            if p.bounds_trust_region and self.idx_u is not None:
+                centre = x_trj[:-1, self.idx_u]
+                bu = torch.stack([centre + bu[0], centre + bu[1]])
+            else:
+                bu = box(bu, T, m)
+        bdx = self._bound("x_bounds_rel")
+        bdu = self._bound("u_bounds_rel")
+        if bdu is not None:
+            bdu = box(bdu, T, m).clone()
+            if self.idx_u is None:
+                # Plain-u mode: no predecessor input at t=0 (the Δu mode
+                # anchors to x0[idx_u]); the first stage is unconstrained.
+                bdu[0, 0] = -BOUND_BIG
+                bdu[1, 0] = BOUND_BIG
+        return admm_ops.BoxBounds(
+            x=bx, u=bu, dx=None if bdx is None else box(bdx, T, n), du=bdu)
+
+    def _rel_bounds_for_rollout(self):
+        """Per-knot (rel_lb, rel_ub) of u_t - u_{t-1}, or (None, None); in
+        plain-u mode the t=0 row is unconstrained (as in ``_box_bounds``)."""
+        rel = self._bound("u_bounds_rel")
+        if rel is None:
+            return None, None
+        T, m = self.T, self.system.dim_u
+        rel_lb = rel[0].expand(T, m).clone()
+        rel_ub = rel[1].expand(T, m).clone()
+        if self.idx_u is None:
+            rel_lb[0] = -torch.inf
+            rel_ub[0] = torch.inf
+        return rel_lb, rel_ub
 
     def _iteration(self, x_trj, u_trj, it, perturbations=None) -> StepResult:
         """One smoothing + descent iteration, all on the device.
@@ -268,50 +343,66 @@ class IrsMpc:
         ``estimate_tv_matrices_fnom``)."""
         p = self.params
         sys = self.system
+        n, m = sys.dim_x, sys.dim_u
+        # The cheaper estimation surrogate is justified by Monte-Carlo noise
+        # in the sample targets; "exact" draws none, so it always
+        # linearises the true system.
+        est_sys = (sys if p.gradient_mode == "exact"
+                   else p.estimation_system or sys)
+        # need_A=False: decouple_AB is about to overwrite A.
         tv, f_nom = estimate_tv_matrices_fnom(
-            sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
-            self.smoothing, perturbations)
+            est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
+            self.smoothing, perturbations, need_A=not p.decouple_AB)
         if p.decouple_AB:
             tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys, f_nom=f_nom)
 
         prob = self._build_problem(tv, x_trj)
-        gains = lqr_ops.riccati_backward(prob)
-        z_plan, u_plan = lqr_ops.lqr_rollout_linear(prob, gains)
+        if self._has_bounds():
+            idx_w = (torch.arange(n, n + m, device=self.device)
+                     if self._aug else None)
+            sol = admm_ops.solve_boxed_tvlqr(
+                prob, self._box_bounds(x_trj), n_phys=n, idx_w=idx_w,
+                rho=p.admm_rho, iters=p.admm_iters,
+                over_relax=p.admm_over_relax)
+            K, z_plan, u_plan = sol.gains.K, sol.x_trj, sol.u_trj
+        else:
+            gains = lqr_ops.riccati_backward(prob)
+            z_plan, u_plan = lqr_ops.lqr_rollout_linear(prob, gains)
+            K = gains.K
         # Sanitise: a degenerate estimate must not poison the alpha=0 lane,
         # which reproduces the nominal trajectory exactly.
-        K = torch.nan_to_num(gains.K)
+        K = torch.nan_to_num(K)
         z_plan = torch.nan_to_num(z_plan)
         u_plan = torch.nan_to_num(u_plan)
 
         # Forward pass: roll the true dynamics under affine feedback around
-        # the plan, u_t = u*_t - K_t (z_t - z*_t), for every step size alpha
-        # at once (one lane per alpha).  Alpha blends the plan toward the
-        # nominal; alpha=0 reproduces the nominal.
+        # the plan, u_t = u*_t - K_t (z_t - z*_t), clipped first to the rel
+        # then to the abs input bounds, for every step size alpha at once
+        # (one lane per alpha).  Alpha blends the plan toward the nominal;
+        # alpha=0 reproduces the nominal.
         lb, ub = self._u_bounds_for_rollout(x_trj)
-        n_lanes = self._alphas.shape[0]
+        rel_lb, rel_ub = self._rel_bounds_for_rollout()
+        u_prev0 = (x_trj[0, self.idx_u] if self.idx_u is not None
+                   else torch.zeros(m, device=self.device))
         if self._aug:
-            u_prev0 = x_trj[0, self.idx_u]
             w_nom = torch.cat([u_prev0[None], u_trj[:-1]], dim=0)
             z_nom = torch.cat([x_trj[:-1], w_nom], dim=1)
-            u_prev = u_prev0.expand(n_lanes, -1)
         else:
             z_nom = x_trj[:-1]
         a3 = self._alphas[:, None, None]
         z_ref = z_nom + a3 * (z_plan[:-1] - z_nom)         # (A, T, nz)
         u_ref = u_trj + a3 * (u_plan - u_trj)              # (A, T, m)
 
-        x = x_trj[0].expand(n_lanes, -1)
-        xs, us = [x], []
-        for t in range(self.T):
-            z = torch.cat([x, u_prev], dim=1) if self._aug else x
-            u = u_ref[:, t] - (z - z_ref[:, t]) @ K[t].T
-            u = torch.clamp(u, lb[t], ub[t])
-            x = sys.step_batch(x, u)
-            xs.append(x)
-            us.append(u)
-            u_prev = u
-        xs_all = torch.stack(xs, dim=1)                    # (A, T+1, n)
-        us_all = torch.stack(us, dim=1)                    # (A, T, m)
+        if sys.ls_rollout_fn is not None and _nvcc.on_card(x_trj):
+            # The whole chain, every lane and knot, in one kernel launch.
+            xs_all, us_all = sys.ls_rollout_fn(
+                x_trj[0], u_prev0, K,
+                z_ref[..., :n], z_ref[..., n:] if self._aug else None,
+                u_ref, lb, ub, rel_lb, rel_ub)
+        else:
+            xs_all, us_all = self._rollout_lanes(x_trj[0], u_prev0, K,
+                                                 z_ref, u_ref, lb, ub,
+                                                 rel_lb, rel_ub)
         costs_all = torch.stack(self.eval_cost(xs_all, us_all), dim=1)
 
         totals = torch.where(torch.isnan(costs_all[:, 0]), torch.inf,
@@ -321,6 +412,34 @@ class IrsMpc:
                           u=us_all.index_select(0, best)[0],
                           cvec=costs_all.index_select(0, best)[0],
                           best=best[0], lane_costs=costs_all)
+
+    def _rollout_lanes(self, x0, u_prev0, K, z_ref, u_ref, lb, ub, rel_lb,
+                       rel_ub):
+        """The plain line-search rollout: all lanes as one batch through
+        the system's warm chain (or batched step).  Returns xs (A, T+1, n),
+        us (A, T, m)."""
+        sys = self.system
+        n_lanes = u_ref.shape[0]
+        x = x0.expand(n_lanes, -1)
+        u_prev = u_prev0.expand(n_lanes, -1)
+        ws = (sys.ws_init_fn(self.device) if sys.step_ws_fn is not None
+              else None)
+        xs, us = [x], []
+        for t in range(self.T):
+            z = torch.cat([x, u_prev], dim=1) if self._aug else x
+            u = u_ref[:, t] - (z - z_ref[:, t]) @ K[t].T
+            if rel_lb is not None:
+                u = torch.minimum(torch.maximum(u, u_prev + rel_lb[t]),
+                                  u_prev + rel_ub[t])
+            u = torch.minimum(torch.maximum(u, lb[t]), ub[t])
+            if ws is not None:
+                x, ws = sys.step_ws_fn(x, u, ws)
+            else:
+                x = sys.step_batch(x, u)
+            xs.append(x)
+            us.append(u)
+            u_prev = u
+        return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
     # ------------------------------------------------------------------
     def iterate(self, max_iterations: int, verbose: bool = True):

@@ -131,8 +131,6 @@ def test_history_and_best_tracking():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("u_bounds_abs", np.array([[-1.5], [1.5]])),
-    ("x_bounds_rel", np.array([[-1., -1.], [1., 1.]])),
     ("forward_mode", "resolve"),
     ("parallel_riccati", True),
     ("mesh", object()),
@@ -141,6 +139,57 @@ def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError):
         tmpc.IrsMpc(tmpc.make_pendulum(0.05),
                     _params(tmpc, "exact", T=10, **{field: value}))
+
+
+# Bounded pendulum solves (boxed ADMM, clipped feedback rollout): the
+# bound kinds in plain-u mode, where u_bounds_rel augments the state with
+# the previous input, and the trust-region input box in Δu mode.
+BOUNDED = {
+    "u_bounds_abs": dict(u_bounds_abs=np.array([[-1.5], [1.5]])),
+    "x_bounds_rel": dict(x_bounds_rel=np.array([[-1., -1.], [1., 1.]])),
+    "x_bounds_abs": dict(x_bounds_abs=np.array([[-1., -3.], [4., 3.]])),
+    "u_bounds_rel": dict(u_bounds_rel=np.array([[-0.5], [0.5]]),
+                         u_bounds_abs=np.array([[-2.], [2.]])),
+    "delta_u_trust_region": dict(indices_u_into_x=np.array([0]),
+                                 u_bounds_abs=np.array([[-0.3], [0.3]]),
+                                 bounds_trust_region=True),
+}
+
+
+@pytest.mark.parametrize("case", list(BOUNDED))
+def test_bounded_exact_curve_matches_jax(case):
+    """Exact mode draws no samples, so both packages follow the same curve:
+    cost curve and channels at rtol 1e-4 (as the unbounded Δu curve), the
+    final plan at atol 1e-3, inside its input box.  No kernel is
+    launched on CPU tensors."""
+    kw = dict(BOUNDED[case], admm_iters=30, admm_over_relax=1.6)
+    js = jmpc.IrsMpc(jmpc.make_pendulum(0.05),
+                     _params(jmpc, "exact", T=20, **kw))
+    ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05),
+                     _params(tmpc, "exact", T=20, **kw))
+    assert ts._has_bounds()
+    js.iterate(3, verbose=False)
+    before = cuda_riccati.LAUNCHES
+    ts.iterate(3, verbose=False)
+    assert cuda_riccati.LAUNCHES == before
+    assert ts.cost < ts.cost_lst[0]
+    np.testing.assert_allclose(ts.cost_lst, js.cost_lst, rtol=1e-4)
+    for a, b in zip(ts.stats_lst, js.stats_lst):
+        np.testing.assert_allclose(
+            [a.cost_Qu_final, a.cost_Qa, a.cost_Qa_final, a.cost_R],
+            [b.cost_Qu_final, b.cost_Qa, b.cost_Qa_final, b.cost_R],
+            rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ts.u_trj.numpy(), np.asarray(js.u_trj),
+                               atol=1e-3)
+    np.testing.assert_allclose(ts.x_trj.numpy(), np.asarray(js.x_trj),
+                               atol=1e-3)
+    if "u_bounds_abs" in kw and not kw.get("bounds_trust_region"):
+        lb, ub = kw["u_bounds_abs"]
+        u = ts.u_trj.numpy()
+        assert (u >= lb - 1e-6).all() and (u <= ub + 1e-6).all()
+    if "u_bounds_rel" in kw:
+        du = np.diff(ts.u_trj.numpy(), axis=0)
+        assert np.abs(du).max() <= 0.5 + 1e-5
 
 
 def test_params_from_jax_refuses_what_cannot_cross():
@@ -153,3 +202,17 @@ def test_params_from_jax_refuses_what_cannot_cross():
         convert.params_from_jax(dataclasses.replace(jp, smoothing=custom))
     with pytest.raises(ValueError, match="mesh"):
         convert.params_from_jax(dataclasses.replace(jp, mesh=object()))
+    # A closure decay crosses as its torch counterpart, handed in.
+    decay = lambda it: 1.0 / it  # noqa: E731
+    tp = convert.params_from_jax(dataclasses.replace(jp, smoothing=custom),
+                                 decay=decay)
+    assert tp.smoothing.decay is decay
+    # So does an estimation system; without one, the carry refuses.
+    pend = jmpc.make_pendulum(0.05)
+    with_est = dataclasses.replace(jp, estimation_system=pend)
+    with pytest.raises(ValueError, match="estimation_system"):
+        convert.params_from_jax(with_est)
+    est = tmpc.make_pendulum(0.05)
+    tp = convert.params_from_jax(with_est, estimation_system=est)
+    assert tp.estimation_system is est
+    assert convert.params_from_jax(jp).estimation_system is None

@@ -1,11 +1,17 @@
-"""Kernel K1 (CUDA Riccati backward pass) against the plain PyTorch loop.
+"""The hand-written CUDA kernels against their plain PyTorch versions:
+K1 (Riccati backward pass), K2 (batched PDIP), K3 (whole-loop boxed ADMM)
+and K4 (whole-chain contact line search).
 
 The tests marked ``skipif`` need a CUDA device and skip on the CPU; run them
 on a machine with an H100 and the CUDA toolkit with
 
-    python -m pytest tests/test_torch_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
 
-The wrapper's argument checks run everywhere."""
+The wrappers' argument checks run everywhere: each wrapper raises on CPU
+tensors, another dtype or shape, and sizes past its kernel's limits,
+before anything is launched."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -14,8 +20,9 @@ torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
 from irs_mpc_torch import IrsMpc, IrsMpcParams, SmoothingConfig, \
-    make_pendulum  # noqa: E402
-from irs_mpc_torch.ops import cuda_riccati, lqr  # noqa: E402
+    make_pendulum, make_planar_hand  # noqa: E402
+from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout  # noqa: E402
+from irs_mpc_torch.ops import admm, cuda_admm, cuda_riccati, lqr  # noqa: E402
 
 # The condition is a string so that it is evaluated when the test runs,
 # not when the module is imported.
@@ -95,3 +102,280 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(fault, match):
     with pytest.raises(ValueError, match=match):
         cuda_riccati.riccati_backward_cuda(fault(_cpu_problem()))
     assert cuda_riccati.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# K2, K3, K4
+# ---------------------------------------------------------------------------
+
+@needs_cuda
+def test_qp_kernel_matches_plain_on_card():
+    """Cold at the slice's two iteration counts, with duals, and warm from
+    them: solutions and duals against the plain PDIP's at the smoke run's
+    tolerances, and the JAX package's bulk-agreement criterion."""
+    qps = chip_smoke.planar_hand_qps(B=300)
+    before = cuda_qp.LAUNCHES
+    for iters in (15, 30):
+        (x, lam), (xr, lamr), rel = chip_smoke.qp_gaps(qps, iters)
+        assert max(rel) <= chip_smoke.QP_REL_TOL
+    (xw, _), (xwr, _), rel = chip_smoke.qp_gaps(qps, 6, init=(x, lam),
+                                                init_plain=(xr, lamr))
+    assert max(rel) <= chip_smoke.QP_WARM_REL_TOL
+    assert cuda_qp.LAUNCHES == before + 3
+    scale = xr.abs().max().item()
+    for got, want in ((x, xr), (xw, xwr)):
+        rel = (got - want).abs().amax(1) / scale
+        assert torch.quantile(rel, 0.5).item() < 2e-2
+
+
+@needs_cuda
+@pytest.mark.parametrize("kinds", [("x",), ("dx",), ("x", "u"), ("du",),
+                                   ("u", "du")])
+def test_admm_kernel_matches_plain_on_card(kinds):
+    prob, n_phys = chip_smoke.delta_u_problem()
+    T, n, m = prob.B.shape
+    idx_w = torch.arange(n_phys, n, device="cuda")
+    bounds = chip_smoke.delta_u_bounds(kinds, T, n_phys, m)
+    z0, y0 = chip_smoke.admm_initial(prob, bounds, n_phys, idx_w)
+    before = cuda_admm.LAUNCHES
+    err = chip_smoke.admm_errors(prob, bounds, z0, y0, n_phys=n_phys,
+                                 idx_w=idx_w, rho=5.0, iters=12,
+                                 over_relax=1.6)
+    assert cuda_admm.LAUNCHES == before + 1 and err < chip_smoke.ADMM_TOL
+    # The dispatch: one K1 launch for the initial solve, one K3 launch.
+    launches = (cuda_riccati.LAUNCHES, cuda_admm.LAUNCHES)
+    sol = admm.solve_boxed_tvlqr(prob, bounds, n_phys=n_phys, idx_w=idx_w,
+                                 rho=5.0, iters=12, over_relax=1.6)
+    assert (cuda_riccati.LAUNCHES, cuda_admm.LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
+    assert sol.gains.P is None and sol.u_trj.is_cuda
+
+
+@needs_cuda
+def test_rollout_kernel_matches_plain_and_slice_launches_on_card():
+    """K4 on the line search of the slice's first iteration, then the
+    slice's launches: 2 of K2 and 1 each of K1, K3 and K4 per iteration."""
+    _, _, (args, _) = chip_smoke.first_iteration_inputs()
+    before = cuda_rollout.LAUNCHES
+    xs, us = cuda_rollout.linesearch_rollout_cuda(*args)
+    xr, ur = chip_smoke.rollout.linesearch_rollout_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_rollout.LAUNCHES == before + 1
+    assert (xs - xr).abs().max().item() < chip_smoke.CHAIN_ATOL
+    assert (us - ur).abs().max().item() < chip_smoke.CHAIN_ATOL
+
+    solver, _ = chip_smoke.planar_hand_solver("cuda")
+    mods = (cuda_qp, cuda_riccati, cuda_admm, cuda_rollout)
+    before = [mod.LAUNCHES for mod in mods]
+    solver.iterate(2, verbose=False)
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [4, 2, 2, 2]
+    assert solver.cost_best < solver.cost_lst[0]
+
+
+@needs_cuda
+@pytest.mark.parametrize("n, m", [(5, 8), (16, 64), (1, 1)])
+def test_qp_kernel_generic_shapes_match_plain_on_card(n, m):
+    """Shapes other than the planar hand's take the kernel's generic
+    instance: random strictly convex QPs with feasible boxes.  A few hard
+    lanes of such a batch are float32-sensitive at 30 iterations: at
+    (16, 64) the plain float32 solve is off the float64 one by 2.0e-4 at
+    p90 and 4.4e-2 at p99 of max|x|, the kernel by 2.8e-4 and 2.3e-2, and
+    the two float32 solves differ by 1.2e-3 at p90.  So the tail is held
+    against the float64 solve at the same iteration count: at p90 and p99
+    the kernel, x and duals, is no less accurate than the plain float32
+    version (within 2.5x), and the bulk and p90 agree with it."""
+    g = torch.Generator().manual_seed(n * 100 + m)
+    B = 257                                   # a ragged last block
+
+    def f(*shape):
+        return torch.randn(*shape, generator=g)
+
+    L = f(B, n, n) * 0.3
+    P = torch.eye(n) + L @ L.transpose(1, 2)
+    args = [a.cuda() for a in (P, f(B, n), f(B, m, n), f(B, m).abs() + 0.1)]
+    before = cuda_qp.LAUNCHES
+    x, lam = cuda_qp.solve_qp_batched(*args, 30, want_lam=True)
+    xr, lamr = cuda_qp.solve_qp_batched_plain(*args, 30, want_lam=True)
+    x64, lam64 = (a.float() for a in cuda_qp.solve_qp_batched_plain(
+        *[a.double() for a in args], 30, want_lam=True))
+    conv = cuda_qp.solve_qp_batched_plain(*[a.double() for a in args],
+                                          200).float()
+    torch.cuda.synchronize()
+    assert cuda_qp.LAUNCHES == before + 1
+    assert bool(torch.isfinite(x).all() and torch.isfinite(lam).all())
+    assert lam.min().item() >= 0.0
+
+    def p(a, b, pct, ref):
+        scale = ref.abs().max().item() + 1e-9
+        return torch.quantile((a - b).abs().amax(1) / scale, pct).item()
+
+    assert p(x, conv, 0.9, conv) < max(2.5 * p(xr, conv, 0.9, conv), 5e-2)
+    for got, plain, ref in ((x, xr, x64), (lam, lamr, lam64)):
+        for pct in (0.9, 0.99):
+            assert p(got, ref, pct, ref) <= max(
+                2.5 * p(plain, ref, pct, ref), 1e-6)
+    assert p(x, xr, 0.5, conv) < 1e-4
+    assert p(x, xr, 0.9, conv) < 5e-3
+
+
+@needs_cuda
+def test_admm_kernel_on_a_plain_tracking_problem_on_card():
+    """No Δu augmentation (n_phys = n): u and x boxes on the random
+    n=16, m=4 problem of ``chip_smoke.bench_problem``, cut to T=30."""
+    prob = chip_smoke.bench_problem(T=30)
+    T, n, m = prob.B.shape
+    bounds = admm.BoxBounds(
+        x=torch.stack([torch.full((T + 1, n), -1.0, device="cuda"),
+                       torch.full((T + 1, n), 1.0, device="cuda")]),
+        u=torch.stack([torch.full((T, m), -0.3, device="cuda"),
+                       torch.full((T, m), 0.3, device="cuda")]))
+    z0, y0 = chip_smoke.admm_initial(prob, bounds, n, None)
+    err = chip_smoke.admm_errors(prob, bounds, z0, y0, n_phys=n, idx_w=None,
+                                 rho=1.0, iters=12, over_relax=1.6)
+    assert err < chip_smoke.ADMM_TOL
+
+
+def _chain_inputs(aug, rel, A=3, T=10, seed=0):
+    """Line-search inputs around the planar hand's resting state: small
+    random gains and references, and input boxes with an inf and a NaN
+    entry (the NaN side is a no-op)."""
+    model = make_planar_hand()
+    nq, m = model.nq, model.dim_u
+    g = torch.Generator().manual_seed(seed)
+    q0 = torch.from_numpy(model.get_x_from_q_dict(chip_smoke.HAND_Q0))
+    nz = nq + m if aug else nq
+    lb = torch.full((T, m), -0.05)
+    ub = torch.full((T, m), 0.05)
+    lb[:, 0], ub[:, 1] = -torch.inf, float("nan")
+    centre = q0[3:].expand(T, m)
+    args = dict(
+        x0=q0, u_prev0=q0[3:].clone(),
+        K=torch.randn(T, m, nz, generator=g) * 0.5,
+        z_ref_x=q0 + torch.randn(A, T, nq, generator=g) * 0.01,
+        z_ref_w=(q0[3:] + torch.randn(A, T, m, generator=g) * 0.01
+                 if aug else None),
+        u_ref=q0[3:] + torch.randn(A, T, m, generator=g) * 0.03,
+        lb=centre + lb, ub=centre + ub,
+        rel_lb=torch.full((T, m), -0.02) if rel else None,
+        rel_ub=torch.full((T, m), 0.02) if rel else None)
+    return model, {k: (v.cuda() if v is not None else None)
+                   for k, v in args.items()}
+
+
+@needs_cuda
+@pytest.mark.parametrize("aug, rel, canon", [(True, True, False),
+                                             (False, False, False),
+                                             (False, True, True)])
+def test_rollout_kernel_variants_match_plain_on_card(aug, rel, canon):
+    model, args = _chain_inputs(aug, rel)
+    model = dataclasses.replace(model, canon_warm_duals=canon)
+    before = cuda_rollout.LAUNCHES
+    xs, us = cuda_rollout.linesearch_rollout_cuda(model, **args)
+    xr, ur = chip_smoke.rollout.linesearch_rollout_plain(model, **args)
+    torch.cuda.synchronize()
+    assert cuda_rollout.LAUNCHES == before + 1
+    assert bool(torch.isfinite(xs).all())
+    assert (xs - xr).abs().max().item() < chip_smoke.CHAIN_ATOL
+    assert (us - ur).abs().max().item() < chip_smoke.CHAIN_ATOL
+    if rel:
+        du = us[:, 1:] - us[:, :-1]
+        assert du.abs().max().item() <= 0.02 + 1e-5
+
+
+def _cpu_qps(B=4, n=7, m=10):
+    rng = np.random.RandomState(0)
+
+    def f(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32)
+
+    return {"P": torch.eye(n).expand(B, n, n).contiguous(), "q": f(B, n),
+            "C": f(B, m, n), "d": f(B, m).abs()}
+
+
+def _zeros(*shape):
+    return torch.zeros(shape)
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda a: a, "CUDA tensors"),
+    (lambda a: dict(a, P=a["P"].double()), "float32"),
+    (lambda a: dict(a, C=a["C"][:, :, :5]), "shape"),
+    (lambda a: dict(a, init=(_zeros(4, 7), _zeros(4, 9))), "shape"),
+    (lambda a: dict(a, P=_zeros(4, 17, 17), q=_zeros(4, 17),
+                    C=_zeros(4, 10, 17)), "n <= 16"),
+    (lambda a: dict(a, C=_zeros(4, 65, 7), d=_zeros(4, 65)), "m <= 64"),
+])
+def test_qp_wrapper_refuses_what_the_kernel_does_not_take(fault, match):
+    before = cuda_qp.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        cuda_qp.solve_qp_batched_cuda(**fault(_cpu_qps()))
+    assert cuda_qp.LAUNCHES == before
+
+
+def _cpu_admm(T=4, n=3, m=2, kinds=("u", "du")):
+    """A Δu problem (n + m augmented states), its boxes and initial z, y."""
+    rng = np.random.RandomState(1)
+
+    def f(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32)
+
+    prob = lqr.build_delta_u_problem(
+        torch.eye(n) + 0.1 * f(T, n, n), f(T, n, m), f(T, n),
+        torch.eye(n), torch.eye(n), torch.eye(m), f(n),
+        torch.zeros(T + 1, n), torch.arange(m))
+    bounds = admm.BoxBounds(**{k: torch.stack([-torch.ones(T, m),
+                                               torch.ones(T, m)])
+                               for k in kinds})
+    z = admm._SVals(**{k: torch.zeros(T, m) for k in kinds})
+    return dict(prob=prob, bounds=bounds, z0=z, y0=z, n_phys=n,
+                idx_w=torch.arange(n, n + m), rho=1.0, iters=3,
+                over_relax=1.6)
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda a: a, "CUDA tensors"),
+    (lambda a: dict(a, prob=a["prob"]._replace(Q=a["prob"].Q.double())),
+     "float32"),
+    (lambda a: dict(a, bounds=a["bounds"]._replace(
+        u=a["bounds"].u[:, :2])), "shape"),
+    (lambda a: dict(a, idx_w=None), "du box"),
+    (lambda a: dict(a, idx_w=torch.arange(2)), "du box"),
+    (lambda a: dict(a, **_cpu_admm(n=31)), "n <= 32"),
+])
+def test_admm_wrapper_refuses_what_the_kernel_does_not_take(fault, match):
+    before = cuda_admm.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        cuda_admm.solve_boxed_tvlqr_cuda(**fault(_cpu_admm()))
+    assert cuda_admm.LAUNCHES == before
+
+
+def _cpu_chain(A=2, T=3):
+    model = make_planar_hand()
+    nq, m = model.nq, model.dim_u
+    x0 = torch.zeros(nq)
+    return dict(model=model, x0=x0, u_prev0=torch.zeros(m),
+                K=torch.zeros(T, m, nq + m), z_ref_x=torch.zeros(A, T, nq),
+                z_ref_w=torch.zeros(A, T, m), u_ref=torch.zeros(A, T, m),
+                lb=torch.full((T, m), -1.0), ub=torch.full((T, m), 1.0),
+                rel_lb=None, rel_ub=None)
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda a: a, "CUDA tensors"),
+    (lambda a: dict(a, K=a["K"].double()), "float32"),
+    (lambda a: dict(a, z_ref_x=a["z_ref_x"][:, :2]), "shape"),
+    (lambda a: dict(a, z_ref_w=None), "columns"),
+    (lambda a: dict(a, rel_lb=a["lb"]), "both rel bounds"),
+    (lambda a: dict(a, model=dataclasses.replace(a["model"],
+                                                 contact_model="lcp")),
+     "does not take model"),
+    # 35 pairs: 70 contact rows, past the kernel's 64.
+    (lambda a: dict(a, model=dataclasses.replace(
+        a["model"], pairs=a["model"].pairs * 7)), "does not take model"),
+])
+def test_rollout_wrapper_refuses_what_the_kernel_does_not_take(fault,
+                                                               match):
+    before = cuda_rollout.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        cuda_rollout.linesearch_rollout_cuda(**fault(_cpu_chain()))
+    assert cuda_rollout.LAUNCHES == before
