@@ -32,12 +32,35 @@ exit code:
 7. drives the planar-hand iRS-MPC slice (T=30, 50 samples per knot,
    zero_order_B, boxed ADMM, 8 iterations) on the card: initial cost
    325.0136 within 0.1%, best within 12% of 22.26, and per iteration
-   exactly 2 launches of K2 and 1 each of K1, K3 and K4.
+   exactly 2 launches of K2 and 1 each of K1, K3 and K4;
+8. holds K2 (both calls), K3, K1 and K4 against their plain versions on
+   what the first iteration of each box slice hands them (box pushing:
+   60 + 6000 QPs of 5 unknowns and 2 rows, T=60 n=7 m=2 with a du box,
+   6 lanes x 60 knots with relative input bounds; box pivoting: 40 + 4000
+   QPs with 18 rows, T=40 with a u box, 6 lanes x 40 knots with
+   canonicalised duals), and times both;
+9. holds K4 against its plain chain on every pair kind in both orders:
+   the three slices' first-iteration line searches with every pair's sides
+   swapped, and built inputs for plate pickup (capsule-box on prismatic
+   fingers) and a circle-circle model, both ways round;
+10. drives the box-pushing slice (T=60, 100 samples per knot, relative
+   input bounds, 8 iterations): initial cost 134.4132 within 0.1%, best
+   within 12% of 46.16, the same launches per iteration as the hand;
+11. drives the box-pivoting slice (T=40, 100 samples per knot,
+   canonicalised duals, 8 iterations): initial cost 786.3928 within 0.1%,
+   best at most 12% above 317.41, the same launches; then the same solver
+   without its whole-chain rollout (the per-knot warm chain), for its curve;
+12. profiles a box-pushing iteration: each phase synchronised, then the
+   device's busy share and kernels under ``torch.profiler``.
 
-The last lines are a JSON summary of the kernels, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Every kernel's time stands beside its bound, the larger of its operations
+over the card's float32 peak and its bytes over its memory rate.  The last
+lines are a JSON summary of the kernels, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
+import collections
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,8 +71,10 @@ import numpy as np
 import torch
 
 from irs_mpc_torch import (IrsMpc, IrsMpcParams, SmoothingConfig,
-                           make_pendulum, make_planar_hand)
-from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout, rollout
+                           make_box_pivoting, make_box_pushing, make_pendulum,
+                           make_planar_hand, make_plate_pickup)
+from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
+                                          quasistatic, rollout)
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
 
 REL_TOL = 1e-3          # max|ΔK| / max|K| and the same for k
@@ -60,8 +85,15 @@ T, NUM_SAMPLES, ITERATIONS = 200, 1000, 9
 
 # The planar-hand slice and its goldens (tests/test_golden_contact.py).
 HAND_T, HAND_S, HAND_ITERATIONS = 30, 50, 8
-HAND_INITIAL, HAND_INITIAL_RTOL = 325.0136, 1e-3
+HAND_INITIAL = 325.0136
 HAND_BEST, HAND_BEST_RTOL = 22.26, 0.12
+# The box slices and their goldens (tests/test_golden_contact.py).  The
+# best of box_pivoting is gated from above only: on that stiff model the
+# JAX package's kernel chain and its scan chain settle in different basins
+# (186.8 against 228.6 at 10 descents), and 317.41 is the scan chain's.
+BOX_S, BOX_ITERATIONS, BOX_BEST_RTOL = 100, 8, 0.12
+BOX_PUSHING_T, BOX_PUSHING_INITIAL, BOX_PUSHING_BEST = 60, 134.4132, 46.16
+BOX_PIVOTING_T, BOX_PIVOTING_INITIAL, BOX_PIVOTING_BEST = 40, 786.3928, 317.41
 # K3 and K4 against their plain versions: x, u, K at rtol/atol 1e-3 and
 # the residuals at rtol 1e-2 (the JAX package's whole-loop ADMM check);
 # the chain's xs, us at atol 5e-3 (its whole-chain rollout check).
@@ -71,6 +103,9 @@ ADMM_TOL, ADMM_RES_RTOL, CHAIN_ATOL = 1e-3, 1e-2, 5e-3
 # calls, the 2048-QP check) and a warm start from the duals, which
 # amplifies the gap about tenfold.
 QP_REL_TOL, QP_WARM_REL_TOL = 1e-5, 1e-4
+# One H100 SXM at its full 700 W (NVIDIA's data sheet): float32 outside the
+# tensor cores, and the HBM3's rate.
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
 KERNELS = (cuda_riccati, cuda_qp, cuda_admm, cuda_rollout)
 DEVICE = "cuda"
 
@@ -186,6 +221,149 @@ def planar_hand_solver(device, T=HAND_T, num_samples=HAND_S):
     return IrsMpc(model.system(), params, device=device), model
 
 
+def box_pushing_solver(device, T=BOX_PUSHING_T, num_samples=BOX_S):
+    """The box-pushing configuration of the JAX package's example
+    (``examples/box_pushing.py``): box at (0, 0.5, 0), hand at (0, -0.2),
+    goal box +(0.5, 0.5, -pi/4), running cost only (Qd = 0), Δu mode,
+    relative input bounds of +-0.4h, zero_order_B with decoupled A/B,
+    std_u 0.3 decayed by 0.3**it / 0.3, 30 ADMM sweeps and the
+    15-iteration estimation surrogate."""
+    model = make_box_pushing(h=0.1)
+    idx_u = model.indices_u_into_x()
+    q0 = {"box": np.array([0.0, 0.5, 0.0]), "hand": np.array([0.0, -0.2])}
+    x0 = model.get_x_from_q_dict(q0)
+    xd = model.get_x_from_q_dict({
+        "box": q0["box"] + np.array([0.5, 0.5, -np.pi / 4]),
+        "hand": q0["hand"]})
+    Q_dict = {"box": np.array([3.0, 3.0, 1.2]), "hand": np.zeros(2)}
+    params = IrsMpcParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 0 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"hand": 1e1 * np.ones(2)}),
+        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        u_bounds_rel=np.array([-np.ones(2) * 0.4 * model.h,
+                               np.ones(2) * 0.4 * model.h]),
+        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
+        gradient_mode="zero_order_B", decouple_AB=True,
+        smoothing=SmoothingConfig(
+            num_samples=num_samples, std_u=0.3, std_x=1e-3,
+            decay=lambda it: 0.3 ** it / 0.3, decay_std_x=False),
+        admm_iters=30, report_final_cost_with_Q=False,
+        estimation_system=model.estimation_surrogate())
+    return IrsMpc(model.system(), params, device=device), model
+
+
+def box_pivoting_solver(device, T=BOX_PIVOTING_T, num_samples=BOX_S):
+    """The box-pivoting configuration of the JAX package's example
+    (``examples/box_pivoting.py``): box resting against the wall at
+    (0.45, 0.5, 0), hand at (-0.17, 0.8), goal a -30 degree pivot about the
+    bottom corner at the wall, Δu mode, trust-region input boxes of
+    +-0.6h, zero_order_B with decoupled A/B, std_u 0.1 decayed by
+    1/it**0.8, 30 ADMM sweeps and the 15-iteration estimation surrogate;
+    the model canonicalises its warm duals."""
+    model = make_box_pivoting(h=0.05)
+    idx_u = model.indices_u_into_x()
+    q0 = {"box": np.array([0.45, 0.5, 0.0]), "hand": np.array([-0.17, 0.8])}
+    x0 = model.get_x_from_q_dict(q0)
+    xd = model.get_x_from_q_dict({"box": np.array([0.767, 0.683,
+                                                   -np.pi / 6]),
+                                  "hand": q0["hand"]})
+    Q_dict = {"box": np.array([1.0, 1.0, 20.0]),
+              "hand": np.array([1e-4, 1e-4])}
+    params = IrsMpcParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"hand": np.array([0.5, 0.5])}),
+        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        u_bounds_abs=np.array([-np.ones(2) * 0.6 * model.h,
+                               np.ones(2) * 0.6 * model.h]),
+        bounds_trust_region=True,
+        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
+        gradient_mode="zero_order_B", decouple_AB=True,
+        smoothing=SmoothingConfig(
+            num_samples=num_samples, std_u=0.1, std_x=1e-3,
+            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
+        admm_iters=30, report_final_cost_with_Q=False,
+        estimation_system=model.estimation_surrogate())
+    return IrsMpc(model.system(), params, device=device), model
+
+
+def circle_pair_model(geom, quasistatic):
+    """A small model for the circle-circle pair kind, which no bundled
+    model within K4's limits has: a round pusher (y, z) and a free ball
+    (y, z, th) on the ground beside a round post.  ``geom`` and
+    ``quasistatic`` are either package's modules, so that the tests build
+    its JAX twin from the same code."""
+    qs = quasistatic
+    ball = geom.FreeBody2D(idx_pos=(0, 1), idx_rot=2,
+                           shapes=(geom.Circle((0., 0.), 0.2),))
+    hand = geom.FreeBody2D(idx_pos=(3, 4), idx_rot=None,
+                           shapes=(geom.Circle((0., 0.), 0.1),))
+    world = geom.StaticBody(shapes=(geom.HalfSpace((0.0, 1.0), 0.0),
+                                    geom.Circle((0.55, 0.15), 0.15)))
+    return qs.QuasistaticModel(
+        name="circle_pair", h=0.1, nq=5,
+        models=(qs.ModelInstance("ball", (0, 1, 2), actuated=False,
+                                 mass=(1.0, 1.0, 0.02)),
+                qs.ModelInstance("hand", (3, 4), actuated=True,
+                                 stiffness=(300.0, 300.0))),
+        bodies=(ball, hand, world),
+        pairs=(qs.ContactPair(body_a=1, body_b=0, mu=0.5),
+               qs.ContactPair(body_a=2, body_b=0, shape_a=0, mu=0.5),
+               qs.ContactPair(body_a=2, body_b=0, shape_a=1, mu=0.5)),
+        gravity=(0.0, -10.0))
+
+
+def swap_pairs(model):
+    """``model`` with the two sides of every contact pair swapped: the
+    other order of each pair kind, and normals of the other sign."""
+    return dataclasses.replace(model, pairs=tuple(
+        dataclasses.replace(p, body_a=p.body_b, body_b=p.body_a,
+                            shape_a=p.shape_b, shape_b=p.shape_a)
+        for p in model.pairs))
+
+
+# Configurations in contact (those of the JAX package's kernel tests), in
+# the models' dof order.
+CONTACT_Q0 = {
+    "planar_hand": [0.0, 0.35, 0.0, -np.pi / 4, -np.pi / 4, np.pi / 4,
+                    np.pi / 4],
+    "box_pushing": [0.0, 0.5, 0.0, 0.0, -0.12],
+    "box_pivoting": [0.45, 0.5, 0.0, -0.15, 0.5],
+    "plate_pickup": [0.0, 0.04, 0.0, 0.0, 0.30, 0.0, -0.16, -0.16],
+    "circle_pair": [0.0, 0.2, 0.0, -0.31, 0.2],
+}
+
+
+def chain_inputs(model, q0, A=3, T=10, aug=True, rel=False, seed=0,
+                 device=DEVICE):
+    """Line-search inputs for K4 around the configuration ``q0``: small
+    random gains and references, and input boxes with an inf and a NaN
+    entry (the NaN side is a no-op)."""
+    nq, m = model.nq, model.dim_u
+    g = torch.Generator().manual_seed(seed)
+    q0 = torch.tensor(q0, dtype=torch.float32)
+    u0 = q0[torch.from_numpy(model.indices_u_into_x())]
+    nz = nq + m if aug else nq
+    lb = torch.full((T, m), -0.05)
+    ub = torch.full((T, m), 0.05)
+    lb[:, 0], ub[:, 1] = -torch.inf, float("nan")
+    args = dict(
+        x0=q0, u_prev0=u0.clone(),
+        K=torch.randn(T, m, nz, generator=g) * 0.5,
+        z_ref_x=q0 + torch.randn(A, T, nq, generator=g) * 0.01,
+        z_ref_w=(u0 + torch.randn(A, T, m, generator=g) * 0.01
+                 if aug else None),
+        u_ref=u0 + torch.randn(A, T, m, generator=g) * 0.03,
+        lb=u0 + lb, ub=u0 + ub,
+        rel_lb=torch.full((T, m), -0.02) if rel else None,
+        rel_ub=torch.full((T, m), 0.02) if rel else None)
+    return {k: (v.to(device) if v is not None else None)
+            for k, v in args.items()}
+
+
 def planar_hand_qps(B=2048, seed=0):
     """B planar-hand contact QPs (P, q, C, d) around the resting
     configuration, at the estimation sweep's spread (std_x 1e-3, std_u
@@ -263,11 +441,12 @@ def capture(module, name, calls):
         setattr(module, name, real)
 
 
-def first_iteration_inputs():
-    """The arguments the planar-hand slice's first iteration hands K2 (its
-    two calls), K3 and K4, recorded from a solver run on the card."""
+def first_iteration_inputs(solver_fn=planar_hand_solver):
+    """The arguments the first iteration of a contact slice (by default the
+    planar hand's) hands K2 (its two calls), K3 and K4, recorded from a
+    solver run on the card."""
     k2, k3, k4 = [], [], []
-    solver, _ = planar_hand_solver(DEVICE)
+    solver, _ = solver_fn(DEVICE)
     with capture(cuda_qp, "solve_qp_batched_cuda", k2), \
             capture(cuda_admm, "solve_boxed_tvlqr_cuda", k3), \
             capture(cuda_rollout, "linesearch_rollout_cuda", k4):
@@ -326,6 +505,367 @@ def admm_errors(prob, bounds, z0, y0, n_phys, idx_w, rho, iters,
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Each kernel at one shape: checked against its plain version, timed, and
+# set beside its bound, the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+def tensor_bytes(obj):
+    """Bytes of the tensors in ``obj`` (nested tuples, lists, dicts and
+    dataclasses), each element counted once as the kernel reads it."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(o) for o in obj)
+    return 0
+
+
+def riccati_flops(T, n, m):
+    """Operations of a Riccati backward pass with a cross term, per knot:
+    A'PA, B'PB and B'PA (4n³ + 4n²m + 2nm²), the Gauss-Jordan solve of
+    Quu against [Qux | qu] (2m²(m + n + 1)), the value update (2n²m) and
+    the vector terms (4n² + 4nm)."""
+    return T * (4 * n ** 3 + 6 * n ** 2 * m + 2 * n * m ** 2
+                + 2 * m ** 2 * (m + n + 1) + 4 * n ** 2 + 4 * n * m)
+
+
+def pdip_flops(B, n, m, iters):
+    """Operations of ``iters`` PDIP iterations on B QPs of n unknowns and m
+    rows: H = P + C'WC (2mn²), its Gauss-Jordan solve (2n²(n + 1)), the four
+    products with C or C' (8mn) and the row-wise updates (~20m)."""
+    return B * iters * (2 * m * n * n + 2 * n * n * (n + 1) + 8 * m * n
+                        + 20 * m)
+
+
+def admm_flops(T, n, m, iters):
+    """Operations of K3: the Riccati factorisation with H⁻¹ (4m³ per
+    knot), then per sweep and knot the affine backward pass, the rollout and
+    the consensus updates (6n² + 10nm + 2m² + 10(n + m))."""
+    return (riccati_flops(T, n, m) + T * 4 * m ** 3
+            + iters * T * (6 * n * n + 10 * n * m + 2 * m * m
+                           + 10 * (n + m)))
+
+
+def chain_flops(A, T, nq, m, nz, rows, iters):
+    """Operations of K4: per lane and knot the feedback law (2m·nz), the
+    narrow phase and row assembly (~30 per row and unknown) and ``iters``
+    PDIP iterations with a diagonal P (3·rows·nq² for H, 2nq²(nq + 1) for
+    its solve, 8·rows·nq for the products, ~20 per row)."""
+    return A * T * (iters * (3 * rows * nq * nq + 2 * nq * nq * (nq + 1)
+                             + 8 * rows * nq + 20 * rows)
+                    + 2 * m * nz + 30 * rows * nq)
+
+
+def report(kernel, shape, card, err, ms, plain_ms, flops, nbytes):
+    """One timed shape of a kernel, with its bound: the larger of its
+    operations over the card's float32 peak and its bytes over its memory
+    rate, and which of the two sets it."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    row = dict(kernel=kernel, shape=shape, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    print(f"[{kernel}] {shape}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3e} ms "
+          f"(set by {row['bound_by']}; {flops:.4g} flop, {nbytes} B) "
+          f"(median, CUDA events; {card})")
+    return row
+
+
+def k1_row(shape, prob, card, reps=(20, 5)):
+    """K1 against the plain loop: K and k each within REL_TOL of the
+    largest plain gain."""
+    prob = lqr.LqrProblem(*(a.contiguous() for a in prob))
+    ref = lqr.riccati_backward_plain(prob)
+    K, k = cuda_riccati.riccati_backward_cuda(prob)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(K).all() and torch.isfinite(k).all()),
+          f"K1 {shape}: non-finite gains from the kernel")
+    err = 0.0
+    for label, got, want in (("K", K, ref.K), ("k", k, ref.k)):
+        diff = (got - want).abs().max().item()
+        err = max(err, diff)
+        rel = diff / want.abs().max().item()
+        print(f"[K1] {shape}: rel err {label} {rel:.3e}")
+        check(rel < REL_TOL, f"K1 {shape}: kernel {label} disagrees with the "
+                             f"plain loop: rel err {rel:.3e} >= {REL_TOL}")
+    ms = median_ms(lambda: cuda_riccati.riccati_backward_cuda(prob), reps[0])
+    plain_ms = median_ms(lambda: lqr.riccati_backward_plain(prob), reps[1])
+    T, n, m = prob.B.shape
+    return report("K1", shape, card, err, ms, plain_ms,
+                  riccati_flops(T, n, m),
+                  tensor_bytes(prob) + tensor_bytes((K, k)))
+
+
+def quantile_err(got, ref, pct, scale=None):
+    """The ``pct`` quantile over QPs of max|got - ref| / ``scale``, by
+    default max|ref|."""
+    scale = (ref.abs().max().item() if scale is None else scale) + 1e-9
+    return torch.quantile((got - ref).abs().amax(1) / scale, pct).item()
+
+
+def k2_row(shape, qps, iters, card):
+    """K2 against the plain PDIP on a main-path call's QPs, x and duals,
+    at QP_REL_TOL.  Where float32 leaves the QPs' solution undetermined at
+    that level, both are held against the float64 solve instead, the rule
+    of the card test of the kernel's generic instance: at p90 and p99 the
+    kernel is within 2.5x of the plain float32 solve's error."""
+    (x, lam), (xp, lamp), rel = qp_gaps(qps, iters)
+    print(f"[K2] {shape}: kernel-plain max rel err x {rel[0]:.3e}, "
+          f"lam {rel[1]:.3e}")
+    if max(rel) > QP_REL_TOL:
+        print(f"[K2] {shape}: past {QP_REL_TOL}; float32 does not determine "
+              f"these QPs' solutions that closely, so both solves are held "
+              f"against the float64 one")
+        ref = cuda_qp.solve_qp_batched_plain(*(a.double() for a in qps),
+                                             iters, want_lam=True)
+        for label, got, plain, want in (("x", x, xp, ref[0].float()),
+                                        ("lam", lam, lamp, ref[1].float())):
+            apart = int(((got - plain).abs().amax(1)
+                         > 1e-3 * plain.abs().max()).sum())
+            print(f"[K2] {shape}: {label} of {apart} of {got.shape[0]} QPs "
+                  f"apart by > 1e-3 of the largest; max err vs float64: "
+                  f"kernel {quantile_err(got, want, 1.0):.3e}, plain "
+                  f"{quantile_err(plain, want, 1.0):.3e} (not gated)")
+            for pct in (0.9, 0.99):
+                ek = quantile_err(got, want, pct)
+                ep = quantile_err(plain, want, pct)
+                print(f"[K2] {shape}: p{pct * 100:.0f} err vs float64 "
+                      f"{label}: kernel {ek:.3e}, plain {ep:.3e}")
+                check(ek <= max(2.5 * ep, 1e-6),
+                      f"K2 {shape}: {label} less accurate than the plain "
+                      f"PDIP at p{pct * 100:.0f}: {ek:.3e} vs {ep:.3e}")
+    err = (x - xp).abs().max().item()
+    ms = median_ms(lambda: cuda_qp.solve_qp_batched_cuda(*qps, iters), 20)
+    plain_ms = median_ms(lambda: cuda_qp.solve_qp_batched_plain(*qps, iters),
+                         5)
+    B, n = qps[1].shape
+    m = qps[3].shape[1]
+    return report("K2", shape, card, err, ms, plain_ms,
+                  pdip_flops(B, n, m, iters),
+                  tensor_bytes(qps) + x.numel() * x.element_size())
+
+
+def k3_row(shape, args, kw, card, plain_reps=5):
+    """K3 against the plain loop (``admm_errors``)."""
+    err = admm_errors(*args, **kw)
+    out = cuda_admm.solve_boxed_tvlqr_cuda(*args, **kw)
+    ms = median_ms(lambda: cuda_admm.solve_boxed_tvlqr_cuda(*args, **kw), 20)
+    plain_ms = median_ms(lambda: admm._admm_plain(
+        *args, kw["n_phys"], kw["idx_w"], kw["rho"], kw["iters"],
+        kw["over_relax"]), plain_reps)
+    T, n, m = args[0].B.shape
+    return report("K3", shape, card, err, ms, plain_ms,
+                  admm_flops(T, n, m, kw["iters"]),
+                  tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(out))
+
+
+def k4_row(shape, args, card, plain_reps=3):
+    """K4 against the plain chain: xs and us within CHAIN_ATOL."""
+    model = args[0]
+    xs, us = cuda_rollout.linesearch_rollout_cuda(*args)
+    xr, ur = rollout.linesearch_rollout_plain(*args)
+    torch.cuda.synchronize()
+    A, T, m = us.shape
+    check(tuple(xs.shape) == (A, T + 1, model.nq)
+          and bool(torch.isfinite(xs).all() and torch.isfinite(us).all()),
+          f"K4 {shape}: bad trajectories")
+    err = max((xs - xr).abs().max().item(), (us - ur).abs().max().item())
+    check(err < CHAIN_ATOL,
+          f"K4 {shape}: disagrees with the plain chain: {err:.3e}")
+    ms = median_ms(lambda: cuda_rollout.linesearch_rollout_cuda(*args), 20)
+    plain_ms = median_ms(lambda: rollout.linesearch_rollout_plain(*args),
+                         plain_reps)
+    consts = cuda_rollout._consts(model, xs.device)
+    nz = args[3].shape[-1]
+    return report("K4", shape, card, err, ms, plain_ms,
+                  chain_flops(A, T, model.nq, m, nz, consts["rows"],
+                              model.qp_iters_ws),
+                  tensor_bytes(args[1:]) + tensor_bytes(consts)
+                  + tensor_bytes((xs, us)))
+
+
+def slice_kernel_rows(name, solver_fn, T, S, card):
+    """K2 (both calls), K3, K1 and K4 on what the first iteration of the
+    slice ``name`` hands them."""
+    k2_calls, (k3_args, k3_kw), (k4_args, _) = first_iteration_inputs(
+        solver_fn)
+    sizes = [(args[1].shape[0], args[4]) for args, _ in k2_calls]
+    check(sizes == [(T, 30), (T * S, 15)],
+          f"K2: {name} main-path (QPs, iterations) {sizes}, expected the "
+          f"nominal {T} x 30 and the samples {T * S} x 15")
+    rows = []
+    for args, kwargs in k2_calls:
+        # solve_qp_batched hands on (P, q, C, d, iters, sigma, init,
+        # want_lam): the main path solves cold and without duals.
+        check(len(args) == 8 and args[6] is None and not args[7]
+              and not kwargs, "K2: main-path call not cold and dual-free")
+        B, n = args[1].shape
+        rows.append(k2_row(f"{name} {B} QPs x {args[4]} it, n={n} "
+                           f"m={args[3].shape[1]}", args[:4], args[4], card))
+    prob, bounds = k3_args[:2]
+    Tp, n, m = prob.B.shape
+    kinds = "+".join(kd for kd in admm.KINDS
+                     if getattr(bounds, kd) is not None)
+    rows.append(k3_row(f"{name} T={Tp} n={n} m={m}, {kinds} box, "
+                       f"{k3_kw['iters']} sweeps, a={k3_kw['over_relax']}",
+                       k3_args, k3_kw, card, plain_reps=3))
+    rows.append(k1_row(f"{name} T={Tp} n={n} m={m} (N!=0), the ADMM's "
+                       f"initial solve", prob, card))
+    model = k4_args[0]
+    A, T4, _ = k4_args[6].shape
+    rows.append(k4_row(f"{name} {A} lanes x T={T4}, nq={model.nq}, "
+                       f"{model.n_constraint_rows()} rows, first-iteration "
+                       f"line search", k4_args, card, plain_reps=2))
+    return rows, k4_args
+
+
+def drive_slice(label, solver, iterations, per_it, card, rollouts):
+    """Run ``iterations`` iterations of ``solver`` on the card with every
+    launch count set to 0 just before and read just after; check the
+    launches per iteration (``per_it``), that the trajectories stay on the
+    card, finite and of their shapes.  Returns the launches and the median
+    ms per iteration after the first."""
+    for mod in KERNELS:
+        mod.LAUNCHES = 0
+    solver.iterate(iterations, verbose=False)
+    torch.cuda.synchronize()
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in KERNELS}
+    print(f"[{label}] cost curve: "
+          + " ".join(f"{c:.4f}" for c in solver.cost_lst))
+    print(f"[{label}] launches in {iterations} iterations: {launches}")
+    for name, n in per_it.items():
+        check(launches[name] == n * iterations,
+              f"{label}: {launches[name]} launches of {name} in "
+              f"{iterations} iterations, expected {n} each")
+    tensors = ([solver.x_trj, solver.u_trj, solver.Q, solver.Qd, solver.R,
+                solver.x0, solver.xd_trj, solver.x_trj_best,
+                solver.u_trj_best] + solver.x_trj_lst + solver.u_trj_lst)
+    check(all(_nvcc.on_card(t) for t in tensors),
+          f"{label}: a solver tensor is not on CUDA")
+    T, n, m = solver.T, solver.system.dim_x, solver.system.dim_u
+    check(tuple(solver.x_trj.shape) == (T + 1, n)
+          and tuple(solver.u_trj.shape) == (T, m)
+          and bool(torch.isfinite(solver.x_trj).all()
+                   and torch.isfinite(solver.u_trj).all()),
+          f"{label}: final trajectories wrong in shape or not finite")
+    walls = [st.wall_time for st in solver.stats_lst]
+    dt = statistics.median(walls[1:])
+    print(f"[{label}] first iteration {walls[0] * 1e3:.2f} ms; then median "
+          f"{dt * 1e3:.3f} ms/iteration, {rollouts / dt:.1f} rollouts/s; "
+          f"best {solver.cost_best:.4f} ({card})")
+    return launches, dt * 1e3
+
+
+def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
+    """The contact goldens: the initial cost within 0.1 %, the best in
+    [best_min, best_max]."""
+    check(abs(curve0 - initial) <= 1e-3 * initial,
+          f"{label}: initial cost {curve0} is not {initial} within 0.1%")
+    check(best_min <= best <= best_max,
+          f"{label}: best cost {best} is not in [{best_min}, {best_max}]")
+
+
+def profile_iteration(solver, iterations, card):
+    """Where an iteration's time goes: ``iterations`` iterations with each
+    phase ended by ``torch.cuda.synchronize()`` (host clock), then as many
+    under ``torch.profiler`` unsynchronised, for the device's busy share and
+    its kernels by name."""
+    times = collections.defaultdict(float)
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    from irs_mpc_torch.solvers import irs_mpc
+    patches = [(irs_mpc, "estimate_tv_matrices_fnom", "estimation"),
+               (irs_mpc, "decouple_AB", "decouple_AB"),
+               (irs_mpc.admm_ops, "solve_boxed_tvlqr",
+                "boxed ADMM (K1, linear plan, K3)")]
+    real = [getattr(mod, name) for mod, name, _ in patches]
+    system = solver.system
+    for mod, name, key in patches:
+        setattr(mod, name, timed(key, getattr(mod, name)))
+    solver._build_problem = timed("problem and bounds",
+                                  solver._build_problem)
+    solver._box_bounds = timed("problem and bounds", solver._box_bounds)
+    solver.eval_cost = timed("cost of the lanes", solver.eval_cost)
+    solver.system = dataclasses.replace(
+        system, ls_rollout_fn=timed("line-search chain (K4)",
+                                    system.ls_rollout_fn))
+    total = 0.0
+    try:
+        for _ in range(iterations):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.iterate(1, verbose=False)
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+    finally:
+        for (mod, name, _), fn in zip(patches, real):
+            setattr(mod, name, fn)
+        for name in ("_build_problem", "_box_bounds", "eval_cost"):
+            delattr(solver, name)
+        solver.system = system
+    for key, s in times.items():
+        print(f"[profile] {key}: {s / iterations * 1e3:.3f} ms")
+    rest = total - sum(times.values())
+    print(f"[profile] remainder: {rest / iterations * 1e3:.3f} ms; "
+          f"iteration, synchronised: {total / iterations * 1e3:.3f} ms "
+          f"(mean of {iterations}; {card})")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.iterate(iterations, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = collections.defaultdict(float)
+    count = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
+            count += 1
+    busy = sum(by_name.values())
+    if not count:
+        print("[profile] the profiler recorded no device events: busy "
+              "share not measured")
+        return
+    print(f"[profile] {iterations} iterations unsynchronised: "
+          f"{wall * 1e3 / iterations:.3f} ms each; {count / iterations:.1f} "
+          f"device kernels per iteration; device busy {busy:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall, busy share {busy / (wall * 1e3):.4f}, "
+          f"idle share {1 - busy / (wall * 1e3):.4f} ({card})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[profile]   {ms / iterations:.3f} ms/iteration  {name[:70]}")
+    print(f"[profile] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+
+
+def contact_models():
+    """Every model of the narrow phase's card check: the bundled models
+    within K4's limits and the circle-circle model."""
+    return {"planar_hand": make_planar_hand(),
+            "box_pushing": make_box_pushing(),
+            "box_pivoting": make_box_pivoting(),
+            "plate_pickup": make_plate_pickup(),
+            "circle_pair": circle_pair_model(geometry, quasistatic)}
+
+
 def main():
     # -- Phase 0: environment ------------------------------------------------
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -353,32 +893,10 @@ def main():
 
     # -- Phase 2: K1 against the plain loop on the card ----------------------
     pend, pend_du = pendulum_problems()
-    cases = [("pendulum T=200 n=2 m=1", pend),
-             ("bench T=200 n=16 m=4", bench_problem()),
-             ("delta-u T=200 n=3 m=1 (N!=0)", pend_du)]
-    results = []
-    for name, prob in cases:
-        prob = lqr.LqrProblem(*(a.contiguous() for a in prob))
-        ref = lqr.riccati_backward_plain(prob)
-        K, k = cuda_riccati.riccati_backward_cuda(prob)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(K).all() and torch.isfinite(k).all()),
-              f"{name}: non-finite gains from the kernel")
-        errs = {}
-        for label, got, want in (("K", K, ref.K), ("k", k, ref.k)):
-            abs_err = (got - want).abs().max().item()
-            errs[label] = (abs_err, abs_err / want.abs().max().item())
-        ms = median_ms(lambda: cuda_riccati.riccati_backward_cuda(prob), 50)
-        plain_ms = median_ms(lambda: lqr.riccati_backward_plain(prob), 10)
-        print(f"[K1] {name}: rel err K {errs['K'][1]:.3e}, "
-              f"k {errs['k'][1]:.3e}; kernel {ms:.4f} ms, plain loop "
-              f"{plain_ms:.3f} ms (median, CUDA events; {card})")
-        for label in ("K", "k"):
-            check(errs[label][1] < REL_TOL,
-                  f"{name}: kernel {label} disagrees with the plain loop: "
-                  f"rel err {errs[label][1]:.3e} >= {REL_TOL}")
-        results.append(dict(name=name, ms=ms, plain_ms=plain_ms,
-                            max_abs_err=max(e[0] for e in errs.values())))
+    rows = [k1_row(shape, prob, card, reps=(50, 10)) for shape, prob in (
+        ("pendulum T=200 n=2 m=1", pend),
+        ("bench T=200 n=16 m=4", bench_problem()),
+        ("delta-u T=200 n=3 m=1 (N!=0)", pend_du))]
 
     # -- Phase 3: the pendulum slice on the card -----------------------------
     params = IrsMpcParams(
@@ -387,73 +905,31 @@ def main():
         u_trj_init=np.tile([0.1], (T, 1)), gradient_mode="zero_order",
         smoothing=SmoothingConfig(num_samples=NUM_SAMPLES, std_x=1.0,
                                   std_u=1.0))
-    cuda_riccati.LAUNCHES = 0
     solver = IrsMpc(make_pendulum(0.05), params, device=DEVICE)
-    solver.iterate(ITERATIONS, verbose=False)
-    torch.cuda.synchronize()
-    launches = cuda_riccati.LAUNCHES
-
+    paths = {"pendulum": drive_slice("pendulum", solver, ITERATIONS,
+                                     {"cuda_riccati": 1}, card,
+                                     T * NUM_SAMPLES)[0]}
     curve = solver.cost_lst
-    print("[slice] cost curve: " + " ".join(f"{c:.4f}" for c in curve))
     check(abs(curve[0] - INITIAL_COST) < INITIAL_TOL,
           f"initial cost {curve[0]} is not {INITIAL_COST} ± {INITIAL_TOL}")
     check(solver.cost <= FINAL_COST_MAX,
           f"final cost {solver.cost} > {FINAL_COST_MAX}")
     check(solver.cost_best <= FINAL_COST_MAX,
           f"best cost {solver.cost_best} > {FINAL_COST_MAX}")
-    check(launches == ITERATIONS,
-          f"{launches} Riccati kernel launches in {ITERATIONS} iterations")
-    tensors = ([solver.x_trj, solver.u_trj, solver.Q, solver.Qd, solver.R,
-                solver.x0, solver.xd_trj, solver.x_trj_best,
-                solver.u_trj_best] + solver.x_trj_lst + solver.u_trj_lst)
-    check(all(_nvcc.on_card(t) for t in tensors),
-          "a solver tensor is not on CUDA")
-    check(tuple(solver.x_trj.shape) == (T + 1, 2)
-          and tuple(solver.u_trj.shape) == (T, 1)
-          and bool(torch.isfinite(solver.x_trj).all()
-                   and torch.isfinite(solver.u_trj).all()),
-          "final trajectories have the wrong shape or are not finite")
-    walls = [s.wall_time for s in solver.stats_lst]
-    dt = statistics.median(walls[1:])
-    print(f"[slice] first iteration {walls[0] * 1e3:.2f} ms; then median "
-          f"{dt * 1e3:.3f} ms/iteration, {T * NUM_SAMPLES / dt:.1f} smoothed "
-          f"rollouts/s; K1 launches {launches} ({card})")
 
-    pend_launches = launches
-
-    # -- Phase 4: K2 against the plain batched PDIP --------------------------
-    k2_calls, (k3_args, k3_kw), (k4_args, _) = first_iteration_inputs()
-    k2_err = 0.0
-    sizes = [(args[1].shape[0], args[4]) for args, _ in k2_calls]
-    check(sizes == [(HAND_T, 30), (HAND_T * HAND_S, 15)],
-          f"K2: main-path (QPs, iterations) {sizes}, expected the nominal "
-          f"{HAND_T} x 30 and the samples {HAND_T * HAND_S} x 15")
-    for args, kwargs in k2_calls:
-        # solve_qp_batched hands on (P, q, C, d, iters, sigma, init,
-        # want_lam): the main path solves cold and without duals.
-        check(len(args) == 8 and args[6] is None and not args[7]
-              and not kwargs, "K2: main-path call not cold and dual-free")
-        qps, iters = args[:4], args[4]
-        (x_m, _), (x_mp, _), rel = qp_gaps(qps, iters)
-        k2_err = max(k2_err, (x_m - x_mp).abs().max().item())
-        print(f"[K2] main path, {qps[1].shape[0]} QPs x {iters} it: "
-              f"kernel-plain max rel err x {rel[0]:.3e}, lam {rel[1]:.3e}")
-        check(max(rel) <= QP_REL_TOL,
-              f"K2 disagrees with the plain PDIP on the main path's "
-              f"{qps[1].shape[0]} QPs: rel err x {rel[0]:.3e}, "
-              f"lam {rel[1]:.3e} > {QP_REL_TOL}")
+    # -- Phases 4-6: K2, K3, K1 and K4 on the planar hand's first iteration,
+    # K2 on 2048 contact QPs and K3 on every bound kind -----------------------
+    hand_rows, hand_k4 = slice_kernel_rows("planar_hand", planar_hand_solver,
+                                           HAND_T, HAND_S, card)
+    rows += hand_rows
     P, q, C, d = planar_hand_qps()
     (x_k, lam_k), (x_p, lam_p), rel = qp_gaps((P, q, C, d), 30)
     x_conv = cuda_qp.solve_qp_batched_plain(P, q, C, d, 120)
     torch.cuda.synchronize()
-    scale = x_conv.abs().max().item() + 1e-9
-
-    def p_rel(a, b, pct):
-        return torch.quantile((a - b).abs().amax(1) / scale, pct).item()
-
-    p90_k, p90_p = p_rel(x_k, x_conv, 0.9), p_rel(x_p, x_conv, 0.9)
-    p50_agree = p_rel(x_k, x_p, 0.5)
-    k2_err = max(k2_err, (x_k - x_p).abs().max().item())
+    scale = x_conv.abs().max().item()
+    p90_k, p90_p = (quantile_err(x_k, x_conv, 0.9),
+                    quantile_err(x_p, x_conv, 0.9))
+    p50_agree = quantile_err(x_k, x_p, 0.5, scale)
     print(f"[K2] 2048 planar-hand QPs, cold 30 it: p90 err vs converged "
           f"{p90_k:.3e} (plain {p90_p:.3e}); p50 kernel-plain {p50_agree:.3e};"
           f" max rel err kernel-plain x {rel[0]:.3e}, lam {rel[1]:.3e}")
@@ -467,32 +943,19 @@ def main():
     # against the plain one's.
     (x_w, _), (x_wp, _), rel_w = qp_gaps((P, q, C, d), 6, init=(x_k, lam_k),
                                          init_plain=(x_p, lam_p))
-    p90_w = p_rel(x_w, x_conv, 0.9)
+    p90_w = quantile_err(x_w, x_conv, 0.9)
+    p50_w = quantile_err(x_w, x_wp, 0.5, scale)
     print(f"[K2] warm 6 it from (x, lam): p90 err vs converged {p90_w:.3e};"
-          f" p50 kernel-plain {p_rel(x_w, x_wp, 0.5):.3e}; max rel err "
-          f"kernel-plain x {rel_w[0]:.3e}, lam {rel_w[1]:.3e}")
+          f" p50 kernel-plain {p50_w:.3e}; max rel err kernel-plain x "
+          f"{rel_w[0]:.3e}, lam {rel_w[1]:.3e}")
     check(p90_w < max(2.5 * p90_k, 5e-2), f"K2 warm start: p90 {p90_w}")
-    check(p_rel(x_w, x_wp, 0.5) < 2e-2, "K2 warm: bulk disagreement")
+    check(p50_w < 2e-2, "K2 warm: bulk disagreement")
     check(max(rel_w) <= QP_WARM_REL_TOL,
           f"K2 warm start disagrees with the plain PDIP: rel err x "
           f"{rel_w[0]:.3e}, lam {rel_w[1]:.3e} > {QP_WARM_REL_TOL}")
-    k2_times = {}
-    timed = [("2048x30", (P, q, C, d), 30)] + [
-        (f"{a[1].shape[0]}x{a[4]}", a[:4], a[4]) for a, _ in k2_calls]
-    for label, args, iters in timed:
-        k2_times[label] = (
-            median_ms(lambda: cuda_qp.solve_qp_batched_cuda(*args, iters),
-                      20),
-            median_ms(lambda: cuda_qp.solve_qp_batched_plain(*args, iters),
-                      5))
-        print(f"[K2] {label}: kernel {k2_times[label][0]:.4f} ms, plain "
-              f"{k2_times[label][1]:.3f} ms (median, CUDA events; {card})")
+    rows.append(k2_row("planar-hand check 2048 QPs x 30 it, n=7 m=10",
+                       (P, q, C, d), 30, card))
 
-    # -- Phase 5: K3 against the plain factored ADMM loop --------------------
-    k3_err = admm_errors(*k3_args, **k3_kw)
-    prob_h, bounds_h, z0_h, y0_h = k3_args[:4]
-    print(f"[K3] planar-hand first-iteration QP (T=30 n=11 m=4, u box, "
-          f"12 sweeps, a=1.6): max abs err {k3_err:.3e}")
     prob_du, n_phys = delta_u_problem()
     Tp, n_aug, m_du = prob_du.B.shape
     idx_w = torch.arange(n_phys, n_aug, device=DEVICE)
@@ -504,114 +967,108 @@ def main():
                           over_relax=1.6)
         print(f"[K3] delta-u T=30 n=11 m=4, kinds {'+'.join(kinds)}: max "
               f"abs err {err:.3e}")
-    k3_ms = median_ms(lambda: cuda_admm.solve_boxed_tvlqr_cuda(
-        *k3_args, **k3_kw), 20)
-    k3_plain_ms = median_ms(lambda: admm._admm_plain(
-        prob_h, bounds_h, z0_h, y0_h, k3_kw["n_phys"], k3_kw["idx_w"],
-        k3_kw["rho"], k3_kw["iters"], k3_kw["over_relax"]), 5)
-    print(f"[K3] planar-hand QP: kernel {k3_ms:.4f} ms, plain loop "
-          f"{k3_plain_ms:.3f} ms (median, CUDA events; {card})")
-    # K1 on the same problem: the initial unconstrained solve of the ADMM.
-    prob_k1 = lqr.LqrProblem(*(a.contiguous() for a in prob_h))
-    K, k = cuda_riccati.riccati_backward_cuda(prob_k1)
-    ref = lqr.riccati_backward_plain(prob_k1)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(K).all() and torch.isfinite(k).all()),
-          "K1 planar hand: non-finite gains from the kernel")
-    k1_rel = {label: ((got - want).abs().max() / want.abs().max()).item()
-              for label, got, want in (("K", K, ref.K), ("k", k, ref.k))}
-    k1_hand = (median_ms(lambda: cuda_riccati.riccati_backward_cuda(prob_k1),
-                         20),
-               median_ms(lambda: lqr.riccati_backward_plain(prob_k1), 5))
-    print(f"[K1] planar-hand T=30 n=11 m=4 (N!=0): rel err K "
-          f"{k1_rel['K']:.3e}, k {k1_rel['k']:.3e}; kernel {k1_hand[0]:.4f} "
-          f"ms, plain loop {k1_hand[1]:.3f} ms (median, CUDA events; {card})")
-    for label, err in k1_rel.items():
-        check(err < REL_TOL,
-              f"K1 planar hand: kernel {label} disagrees with the plain "
-              f"loop: rel err {err:.3e} >= {REL_TOL}")
-
-    # -- Phase 6: K4 against the plain lane-batched chain --------------------
-    hand = k4_args[0]
-    xs_k, us_k = cuda_rollout.linesearch_rollout_cuda(*k4_args)
-    xs_p, us_p = rollout.linesearch_rollout_plain(*k4_args)
-    torch.cuda.synchronize()
-    check(tuple(xs_k.shape) == (6, HAND_T + 1, 7)
-          and bool(torch.isfinite(xs_k).all()), "K4: bad trajectories")
-    k4_err = max((xs_k - xs_p).abs().max().item(),
-                 (us_k - us_p).abs().max().item())
-    print(f"[K4] 6 lanes x T=30, first-iteration line search: max abs err "
-          f"xs/us {k4_err:.3e}")
-    check(k4_err < CHAIN_ATOL,
-          f"K4 disagrees with the plain chain: {k4_err:.3e}")
-    k4_ms = median_ms(lambda: cuda_rollout.linesearch_rollout_cuda(*k4_args),
-                      20)
-    k4_plain_ms = median_ms(
-        lambda: rollout.linesearch_rollout_plain(*k4_args), 3)
-    print(f"[K4] {hand.name}: kernel {k4_ms:.4f} ms, plain chain "
-          f"{k4_plain_ms:.3f} ms (median, CUDA events; {card})")
 
     # -- Phase 7: the planar-hand slice on the card --------------------------
-    for mod in KERNELS:
-        mod.LAUNCHES = 0
+    per_it = {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1,
+              "cuda_rollout": 1}
     solver, _ = planar_hand_solver(DEVICE)
-    solver.iterate(HAND_ITERATIONS, verbose=False)
-    torch.cuda.synchronize()
-    hand_launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-                     for mod in KERNELS}
-    curve = solver.cost_lst
-    print("[hand] cost curve: " + " ".join(f"{c:.4f}" for c in curve))
-    print(f"[hand] launches in {HAND_ITERATIONS} iterations: {hand_launches}")
-    want = {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1,
-            "cuda_rollout": 1}
-    for name, per_it in want.items():
-        check(hand_launches[name] == per_it * HAND_ITERATIONS,
-              f"{name}: {hand_launches[name]} launches in "
-              f"{HAND_ITERATIONS} iterations, expected {per_it} each")
-    check(abs(curve[0] - HAND_INITIAL) <= HAND_INITIAL_RTOL * HAND_INITIAL,
-          f"planar hand: initial cost {curve[0]} is not {HAND_INITIAL} "
-          f"within {HAND_INITIAL_RTOL:.1%}")
-    check(abs(solver.cost_best - HAND_BEST) <= HAND_BEST_RTOL * HAND_BEST,
-          f"planar hand: best cost {solver.cost_best} is not within "
-          f"{HAND_BEST_RTOL:.0%} of {HAND_BEST}")
-    tensors = ([solver.x_trj, solver.u_trj, solver.Q, solver.Qd, solver.R,
-                solver.x0, solver.xd_trj, solver.x_trj_best,
-                solver.u_trj_best] + solver.x_trj_lst + solver.u_trj_lst)
-    check(all(_nvcc.on_card(t) for t in tensors),
-          "a solver tensor is not on CUDA")
-    check(tuple(solver.x_trj.shape) == (HAND_T + 1, 7)
-          and tuple(solver.u_trj.shape) == (HAND_T, 4)
-          and bool(torch.isfinite(solver.x_trj).all()
-                   and torch.isfinite(solver.u_trj).all()),
-          "planar hand: final trajectories wrong in shape or not finite")
-    walls = [st.wall_time for st in solver.stats_lst]
-    dt = statistics.median(walls[1:])
-    print(f"[hand] first iteration {walls[0] * 1e3:.2f} ms; then median "
-          f"{dt * 1e3:.3f} ms/iteration, {HAND_T * HAND_S / dt:.1f} contact "
-          f"rollouts/s; best {solver.cost_best:.4f} ({card})")
+    paths["planar_hand"], _ = drive_slice("hand", solver, HAND_ITERATIONS,
+                                          per_it, card, HAND_T * HAND_S)
+    check_golden("planar hand", solver.cost_lst[0], solver.cost_best,
+                 HAND_INITIAL, (1 + HAND_BEST_RTOL) * HAND_BEST,
+                 (1 - HAND_BEST_RTOL) * HAND_BEST)
 
-    entries = [
-        dict(name="riccati_backward", source="irs_mpc_torch/csrc/riccati.cu",
-             replaces="irs_mpc_tpu/ops/pallas_riccati.py:46",
-             launches=pend_launches + hand_launches["cuda_riccati"],
-             launches_by_path={"pendulum": pend_launches,
-                               "planar_hand": hand_launches["cuda_riccati"]},
-             max_abs_err=results[0]["max_abs_err"], ms=results[0]["ms"],
-             plain_ms=results[0]["plain_ms"]),
-        dict(name="pdip_batched", source="irs_mpc_torch/csrc/pdip.cu",
-             replaces="irs_mpc_tpu/models/contact/pallas_qp.py:33",
-             launches=hand_launches["cuda_qp"], max_abs_err=k2_err,
-             ms=k2_times["1500x15"][0], plain_ms=k2_times["1500x15"][1]),
-        dict(name="admm_boxed", source="irs_mpc_torch/csrc/admm.cu",
-             replaces="irs_mpc_tpu/ops/pallas_admm.py:53",
-             launches=hand_launches["cuda_admm"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=k3_plain_ms),
-        dict(name="rollout_chain", source="irs_mpc_torch/csrc/rollout.cu",
-             replaces="irs_mpc_tpu/models/contact/pallas_rollout.py:613",
-             launches=hand_launches["cuda_rollout"], max_abs_err=k4_err,
-             ms=k4_ms, plain_ms=k4_plain_ms),
-    ]
-    print(json.dumps({"kernels": [dict(route="cuda", **e) for e in entries]}))
+    # -- Phase 8: the box slices' kernels on their first iteration -----------
+    box_k4 = {}
+    for name, fn, Tb in (("box_pushing", box_pushing_solver, BOX_PUSHING_T),
+                         ("box_pivoting", box_pivoting_solver,
+                          BOX_PIVOTING_T)):
+        new_rows, box_k4[name] = slice_kernel_rows(name, fn, Tb, BOX_S, card)
+        rows += new_rows
+
+    # -- Phase 9: K4 on every pair kind, in both orders ----------------------
+    # The slices' first-iteration line searches again with every pair's
+    # sides swapped (the same contacts, normals of the other sign), and
+    # built inputs for plate pickup and the circle-circle model.
+    searches = dict(box_k4, planar_hand=hand_k4)
+    for name, model in contact_models().items():
+        for swapped in (False, True):
+            m = swap_pairs(model) if swapped else model
+            order = "sides swapped" if swapped else "as built"
+            if name in searches:
+                if not swapped:
+                    continue                  # phases 6 and 8
+                args = (m,) + searches[name][1:]
+                shape = f"{name} ({order}) first-iteration line search"
+            else:
+                args = (m,) + tuple(chain_inputs(
+                    m, CONTACT_Q0[name], aug=True, rel=True).values())
+                shape = (f"{name} ({order}) 3 lanes x T=10, nq={m.nq}, "
+                         f"{m.n_constraint_rows()} rows, built inputs")
+            rows.append(k4_row(shape, args, card))
+
+    # -- Phase 10: the box-pushing slice on the card -------------------------
+    solver, _ = box_pushing_solver(DEVICE)
+    paths["box_pushing"], push_ms = drive_slice(
+        "box_pushing", solver, BOX_ITERATIONS, per_it, card,
+        BOX_PUSHING_T * BOX_S)
+    check_golden("box_pushing", solver.cost_lst[0], solver.cost_best,
+                 BOX_PUSHING_INITIAL, (1 + BOX_BEST_RTOL) * BOX_PUSHING_BEST,
+                 (1 - BOX_BEST_RTOL) * BOX_PUSHING_BEST)
+
+    # -- Phase 11: the box-pivoting slice on the card, and its scan chain ----
+    solver, _ = box_pivoting_solver(DEVICE)
+    paths["box_pivoting"], _ = drive_slice(
+        "box_pivoting", solver, BOX_ITERATIONS, per_it, card,
+        BOX_PIVOTING_T * BOX_S)
+    check_golden("box_pivoting", solver.cost_lst[0], solver.cost_best,
+                 BOX_PIVOTING_INITIAL,
+                 (1 + BOX_BEST_RTOL) * BOX_PIVOTING_BEST)
+    # The same solver without its whole-chain rollout: the line search runs
+    # the per-knot warm chain, the JAX package's scan chain.
+    scan = IrsMpc(dataclasses.replace(solver.system, ls_rollout_fn=None),
+                  solver.params, device=DEVICE)
+    drive_slice("box_pivoting scan chain", scan, BOX_ITERATIONS,
+                dict(per_it, cuda_rollout=0), card, BOX_PIVOTING_T * BOX_S)
+    check(scan.cost_lst[0] == solver.cost_lst[0],
+          "box_pivoting: the scan chain starts from another cost")
+
+    # -- Phase 12: where a box-pushing iteration's time goes -----------------
+    solver, _ = box_pushing_solver(DEVICE)
+    solver.iterate(1, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    profile_iteration(solver, 3, card)
+
+    entries = []
+    for kernel, name, source, replaces in (
+            ("K1", "riccati_backward", "irs_mpc_torch/csrc/riccati.cu",
+             "irs_mpc_tpu/ops/pallas_riccati.py:46"),
+            ("K2", "pdip_batched", "irs_mpc_torch/csrc/pdip.cu",
+             "irs_mpc_tpu/models/contact/pallas_qp.py:33"),
+            ("K3", "admm_boxed", "irs_mpc_torch/csrc/admm.cu",
+             "irs_mpc_tpu/ops/pallas_admm.py:53"),
+            ("K4", "rollout_chain", "irs_mpc_torch/csrc/rollout.cu",
+             "irs_mpc_tpu/models/contact/pallas_rollout.py:613")):
+        mod = KERNELS[int(kernel[1]) - 1]
+        key = mod.__name__.rsplit(".", 1)[1]
+        by_path = {path: counts[key] for path, counts in paths.items()
+                   if counts[key]}
+        mine = [r for r in rows if r["kernel"] == kernel]
+        # The headline shape: this slice's, box pushing (its samples for
+        # K2).
+        head = next(r for r in mine if r["shape"].startswith("box_pushing")
+                    and (kernel != "K2"
+                         or f"{BOX_PUSHING_T * BOX_S} QPs" in r["shape"]))
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=head["max_abs_err"], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+            shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,23 +18,29 @@
 //   x  <- x + dq.
 //
 // The model arrives as a table built on the host (rollout.make_consts):
-// for every contact pair, one record per side naming its shape kind
-// (circle, capsule, halfspace), its body kind (static, free body, Arm2D)
-// and that body's indices and parameters.  The kernel walks the table; the
-// narrow phase implements capsule-circle and halfspace-circle, either way
-// round, which is what rollout.supports_model admits.
+// for every contact pair its first row and contact count, then one record
+// per side naming its shape kind (circle, capsule, halfspace, box), its
+// body kind (static, free body, Arm2D, prismatic finger) and that body's
+// indices and parameters.  The narrow phase implements the JAX kernel's
+// eleven pair kinds (rollout._PAIR_KINDS): capsule-circle,
+// halfspace-circle, box-circle, capsule-box and halfspace-box, each either
+// way round, and circle-circle, in geometry.shape_contact's contact order,
+// normal signs and tie rules.  A capsule against a box gives two contacts
+// (its ends), a box against a halfspace four (its corners, in the order
+// (+,+), (-,+), (-,-), (+,-)); every contact has two rows, at its pair's
+// first row + 2c.
 //
 // What bounds it on an H100: latency.  A lane is T x iters dependent
-// Newton steps on a 7 x 7 system with 10 rows, far too little work for an
-// SM, and the lanes are independent.  The design is one block per lane,
-// the lane's whole state and QP in shared memory, threads over contact
-// pairs, rows and H entries, __syncthreads() between phases, and no
-// return to the host between knots.  Scalar reductions (mu, the step
-// length, finiteness) are done by one thread over at most 64 rows.  No
-// fast-math: the divisions and the 1e10-scaled eliminations are where f32
-// fails first.
+// Newton steps on a system of at most 16 unknowns and 64 rows, far too
+// little work for an SM, and the lanes are independent.  The design is one
+// block per lane, the lane's whole state and QP in shared memory, threads
+// over contacts (four slots per pair), rows and H entries,
+// __syncthreads() between phases, and no return to the host between
+// knots.  Scalar reductions (mu, the step length, finiteness) are done by
+// one thread over at most 64 rows.  No fast-math: the divisions and the
+// 1e10-scaled eliminations are where f32 fails first.
 //
-// Limits: nq <= 16, m <= 16, nz <= 32, at most 32 pairs (64 rows).
+// Limits: nq <= 16, m <= 16, nz <= 32, at most 64 rows (32 contacts).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,14 +52,16 @@ constexpr int kMaxNq = 16;
 constexpr int kMaxM = 16;
 constexpr int kMaxRows = 64;
 constexpr int kMaxLinks = 4;
+constexpr int kMaxContacts = 4;   // per pair: a box's four corners
 // Table layout, as rollout.py: per side SIDE_INTS ints and SIDE_FLOATS
-// floats; per pair 2 sides, and mu first among the floats.
+// floats; per pair the first row and the contact count, then 2 sides; mu
+// first among the floats.
 constexpr int kSideInts = 5 + kMaxLinks;
 constexpr int kSideFloats = 7 + kMaxLinks;
-constexpr int kPairInts = 2 * kSideInts;
+constexpr int kPairInts = 2 + 2 * kSideInts;
 constexpr int kPairFloats = 1 + 2 * kSideFloats;
-enum { kCircle = 0, kCapsule = 1, kHalfspace = 2 };
-enum { kStatic = 0, kFree = 1, kArm = 2 };
+enum { kCircle = 0, kCapsule = 1, kHalfspace = 2, kBox = 3 };
+enum { kStatic = 0, kFree = 1, kArm = 2, kFinger = 3 };
 
 __device__ __forceinline__ float nmin(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
@@ -68,9 +76,11 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
 // World geometry of one side of a pair at configuration x.
 struct Side {
   int shape, body;
-  float cy, cz, r;          // circle centre / radius (capsule radius)
+  float cy, cz, r;          // circle or box centre; radius
   float a0y, a0z, a1y, a1z; // capsule segment
   float ny, nz, off;        // halfspace
+  float hx, hy, ct, st;     // box half extents; body (base) rotation
+  float oy, oz, ay, az;     // finger base and world slide axis
   float jy[kMaxLinks + 1], jz[kMaxLinks + 1];  // arm joints 0..k
 };
 
@@ -83,15 +93,36 @@ __device__ void side_geometry(const int* si, const float* sf, const float* x,
     g.ny = sf[1];
     g.nz = sf[2];
     g.off = sf[3];
-  } else if (g.shape == kCircle) {
-    if (g.body == kFree) {
-      g.cy = x[si[2]];
-      g.cz = x[si[3]];
+  } else if (g.body == kStatic) {
+    g.cy = sf[1];
+    g.cz = sf[2];
+  } else if (g.body == kFree || g.body == kFinger) {
+    const float y = x[si[2]], z = x[si[3]];
+    const float th = si[4] >= 0 ? x[si[4]] : 0.f;
+    g.ct = cosf(th);
+    g.st = sinf(th);
+    if (g.body == kFree) {      // centred circle or box
+      g.cy = y;
+      g.cz = z;
+      g.hx = sf[1];
+      g.hy = sf[2];
     } else {
-      g.cy = sf[1];
-      g.cz = sf[2];
+      // tip = base + R(th) (offset + slide * axis); a capsule hangs from
+      // the tip straight down in the base frame.
+      const float slide = x[si[5]];
+      const float ly = sf[4] + slide * sf[1], lz = sf[5] + slide * sf[2];
+      g.oy = y;
+      g.oz = z;
+      g.ay = g.ct * sf[1] - g.st * sf[2];
+      g.az = g.st * sf[1] + g.ct * sf[2];
+      g.cy = y + (g.ct * ly - g.st * lz);
+      g.cz = z + (g.st * ly + g.ct * lz);
+      g.a0y = g.cy;
+      g.a0z = g.cz;
+      g.a1y = g.cy + g.st * sf[3];
+      g.a1z = g.cz - g.ct * sf[3];
     }
-  } else {
+  } else {  // Arm2D link k
     const int k = si[2];
     g.jy[0] = sf[4];
     g.jz[0] = sf[5];
@@ -116,12 +147,20 @@ __device__ void side_jacobian(const int* si, const Side& g, float py,
                               float pz, int i, float& Jy, float& Jz) {
   Jy = 0.f;
   Jz = 0.f;
-  if (g.body == kFree) {
+  if (g.body == kFree || g.body == kFinger) {
+    // Translation of the body (base); rotation about its origin; a
+    // finger's slide along the turned axis.
+    const float oy = g.body == kFree ? g.cy : g.oy;
+    const float oz = g.body == kFree ? g.cz : g.oz;
     if (i == si[2]) Jy += 1.f;
     if (i == si[3]) Jz += 1.f;
     if (i == si[4]) {
-      Jy += -(pz - g.cz);
-      Jz += (py - g.cy);
+      Jy += -(pz - oz);
+      Jz += (py - oy);
+    }
+    if (g.body == kFinger && i == si[5]) {
+      Jy += g.ay;
+      Jz += g.az;
     }
   } else if (g.body == kArm) {
     for (int j = 0; j <= si[2]; ++j) {
@@ -155,14 +194,102 @@ __device__ void capsule_circle(const Side& cap, const Side& cir, float& phi,
                 cir.r, phi, py, pz, ny, nz);
 }
 
-__device__ void circle_halfspace(const Side& cir, const Side& hs, float& phi,
-                                 float& py, float& pz, float& ny,
+// A point p (radius r: the circle's surface) against the halfspace hs,
+// n from the halfspace into the circle.
+__device__ void circle_halfspace(float cy, float cz, float r, const Side& hs,
+                                 float& phi, float& py, float& pz, float& ny,
                                  float& nz) {
-  phi = (hs.ny * cir.cy + hs.nz * cir.cz) - hs.off - cir.r;
-  py = cir.cy - hs.ny * cir.r;
-  pz = cir.cz - hs.nz * cir.r;
+  phi = (hs.ny * cy + hs.nz * cz) - hs.off - r;
+  py = cy - hs.ny * r;
+  pz = cz - hs.nz * r;
   ny = hs.ny;
   nz = hs.nz;
+}
+
+// Circle (cy, cz, r) against an oriented box, n from the box to the
+// circle (geometry.circle_box): outside, the closest point; inside, the
+// nearest face, ties to axis 0, sign(0) taken as +1.
+__device__ void circle_box(float cy, float cz, float r, const Side& box,
+                           float& phi, float& py, float& pz, float& ny,
+                           float& nz) {
+  const float ct = box.ct, st = box.st, hx = box.hx, hy = box.hy;
+  const float dy = cy - box.cy, dz = cz - box.cz;
+  const float ly = ct * dy + st * dz, lz = -st * dy + ct * dz;
+  const float cly = clip(ly, -hx, hx), clz = clip(lz, -hy, hy);
+  float nly, nlz, ply, plz;
+  if (fabsf(ly) < hx && fabsf(lz) < hy) {
+    const float fd0 = hx - fabsf(ly), fd1 = hy - fabsf(lz);
+    const float s0 = ly >= 0.f ? 1.f : -1.f, s1 = lz >= 0.f ? 1.f : -1.f;
+    if (fd0 <= fd1) {
+      phi = -fd0 - r;
+      nly = s0;
+      nlz = 0.f;
+      ply = ly + s0 * fd0;
+      plz = lz;
+    } else {
+      phi = -fd1 - r;
+      nly = 0.f;
+      nlz = s1;
+      ply = ly;
+      plz = lz + s1 * fd1;
+    }
+  } else {
+    const float dly = ly - cly, dlz = lz - clz;
+    const float dist = sqrtf(dly * dly + dlz * dlz + 1e-12f);
+    phi = dist - r;
+    nly = dly / dist;
+    nlz = dlz / dist;
+    ply = cly;
+    plz = clz;
+  }
+  ny = ct * nly - st * nlz;
+  nz = st * nly + ct * nlz;
+  py = box.cy + (ct * ply - st * plz);
+  pz = box.cz + (st * ply + ct * plz);
+}
+
+// Contact c of the pair (a, b): (phi, p, n), n from a into b.
+__device__ void pair_contact(const Side& a, const Side& b, int c, float& phi,
+                             float& py, float& pz, float& ny, float& nz) {
+  bool flip = false;
+  if (a.shape == kCircle && b.shape == kCircle) {
+    circle_circle(a.cy, a.cz, a.r, b.cy, b.cz, b.r, phi, py, pz, ny, nz);
+  } else if (a.shape == kCapsule && b.shape == kCircle) {
+    capsule_circle(a, b, phi, py, pz, ny, nz);
+  } else if (a.shape == kCircle && b.shape == kCapsule) {
+    capsule_circle(b, a, phi, py, pz, ny, nz);
+    flip = true;
+  } else if (a.shape == kHalfspace && b.shape == kCircle) {
+    circle_halfspace(b.cy, b.cz, b.r, a, phi, py, pz, ny, nz);
+  } else if (a.shape == kCircle && b.shape == kHalfspace) {
+    circle_halfspace(a.cy, a.cz, a.r, b, phi, py, pz, ny, nz);
+    flip = true;
+  } else if (a.shape == kBox && b.shape == kCircle) {
+    circle_box(b.cy, b.cz, b.r, a, phi, py, pz, ny, nz);
+  } else if (a.shape == kCircle && b.shape == kBox) {
+    circle_box(a.cy, a.cz, a.r, b, phi, py, pz, ny, nz);
+    flip = true;
+  } else if (a.shape == kCapsule && b.shape == kBox) {   // end c of a
+    circle_box(c ? a.a1y : a.a0y, c ? a.a1z : a.a0z, a.r, b, phi, py, pz,
+               ny, nz);
+    flip = true;
+  } else if (a.shape == kBox && b.shape == kCapsule) {   // end c of b
+    circle_box(c ? b.a1y : b.a0y, c ? b.a1z : b.a0z, b.r, a, phi, py, pz,
+               ny, nz);
+  } else {  // box and halfspace, either way round: corner c of the box
+    const Side& box = a.shape == kBox ? a : b;
+    const Side& hs = a.shape == kBox ? b : a;
+    const float ly = (c == 0 || c == 3) ? box.hx : -box.hx;
+    const float lz = c < 2 ? box.hy : -box.hy;
+    circle_halfspace(box.cy + (box.ct * ly - box.st * lz),
+                     box.cz + (box.st * ly + box.ct * lz), 0.f, hs, phi, py,
+                     pz, ny, nz);
+    flip = a.shape == kBox;
+  }
+  if (flip) {
+    ny = -ny;
+    nz = -nz;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -184,8 +311,8 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
                const float* __restrict__ pair_f,// (pairs, kPairFloats)
                float* __restrict__ xs,          // (A, T+1, nq)
                float* __restrict__ us,          // (A, T, m)
-               int T, int nq, int m, int nz, int pairs, int iters,
-               int canon) {
+               int T, int nq, int m, int nz, int pairs, int mr,
+               int iters, int canon) {
   __shared__ float x[kMaxNq], xw[kMaxNq], xk[kMaxNq], dq[kMaxNq];
   __shared__ float b[kMaxNq], dx[kMaxNq];
   __shared__ float up[kMaxM], u[kMaxM];
@@ -201,7 +328,6 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int mr = 2 * pairs;
   const int w1 = nq + 1;
   const float* zrx_l = zrx + (size_t)lane * T * nq;
   const float* zrw_l = zrw ? zrw + (size_t)lane * T * m : nullptr;
@@ -242,14 +368,18 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
     }
     __syncthreads();
 
-    // -- assembly: b, and two Anitescu rows per pair --
+    // -- assembly: b, and two Anitescu rows per contact --
     for (int i = tid; i < nq; i += nt) {
       float ku = 0.f;
       for (int j = 0; j < m; ++j) ku += u[j] * KUT[j * nq + i];
       b[i] = pq[i] * x[i] - ku - tau[i];
     }
-    for (int pr = tid; pr < pairs; pr += nt) {
-      const int* ia = pair_i + (size_t)pr * kPairInts;
+    for (int e = tid; e < pairs * kMaxContacts; e += nt) {
+      const int pr = e / kMaxContacts, c = e % kMaxContacts;
+      const int* ip = pair_i + (size_t)pr * kPairInts;
+      if (c >= ip[1]) continue;
+      const int row = ip[0] + 2 * c;
+      const int* ia = ip + 2;
       const int* ib = ia + kSideInts;
       const float* fa = pair_f + (size_t)pr * kPairFloats + 1;
       const float* fb = fa + kSideFloats;
@@ -257,20 +387,8 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
       Side ga, gb;
       side_geometry(ia, fa, x, ga);
       side_geometry(ib, fb, x, gb);
-      float phi = 0.f, py = 0.f, pz = 0.f, ny = 0.f, nz_ = 0.f;
-      if (ga.shape == kCapsule && gb.shape == kCircle) {
-        capsule_circle(ga, gb, phi, py, pz, ny, nz_);
-      } else if (ga.shape == kCircle && gb.shape == kCapsule) {
-        capsule_circle(gb, ga, phi, py, pz, ny, nz_);
-        ny = -ny;
-        nz_ = -nz_;
-      } else if (ga.shape == kHalfspace && gb.shape == kCircle) {
-        circle_halfspace(gb, ga, phi, py, pz, ny, nz_);
-      } else {  // circle vs halfspace
-        circle_halfspace(ga, gb, phi, py, pz, ny, nz_);
-        ny = -ny;
-        nz_ = -nz_;
-      }
+      float phi, py, pz, ny, nz_;
+      pair_contact(ga, gb, c, phi, py, pz, ny, nz_);
       for (int i = 0; i < nq; ++i) {
         float jay, jaz, jby, jbz;
         side_jacobian(ia, ga, py, pz, i, jay, jaz);
@@ -278,11 +396,11 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
         const float ry = jby - jay, rz = jbz - jaz;
         const float jn = ny * ry + nz_ * rz;
         const float jt = (-nz_) * ry + ny * rz;
-        C[(2 * pr) * nq + i] = -(jn + mu * jt);
-        C[(2 * pr + 1) * nq + i] = -(jn - mu * jt);
+        C[row * nq + i] = -(jn + mu * jt);
+        C[(row + 1) * nq + i] = -(jn - mu * jt);
       }
-      d[2 * pr] = phi;
-      d[2 * pr + 1] = phi;
+      d[row] = phi;
+      d[row + 1] = phi;
     }
     if (tid == 0) {
       int ok = 1;
@@ -415,10 +533,11 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
     }
     __syncthreads();
     if (canon) {
-      for (int pr = tid; pr < pairs; pr += nt) {
-        const float mean = (lam[2 * pr] + lam[2 * pr + 1]) / 2.f;
-        lam[2 * pr] = mean;
-        lam[2 * pr + 1] = mean;
+      // Per contact: rows 2c and 2c+1 (QuasistaticModel.canon_duals).
+      for (int c = tid; c < mr / 2; c += nt) {
+        const float mean = (lam[2 * c] + lam[2 * c + 1]) / 2.f;
+        lam[2 * c] = mean;
+        lam[2 * c + 1] = mean;
       }
     }
     for (int i = tid; i < nq; i += nt) {
@@ -437,7 +556,8 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
 }  // namespace
 
 // Launches one block per lane on `stream`; zrw null without the
-// prev-input block, rlb/rub null without relative bounds.  Returns
+// prev-input block, rlb/rub null without relative bounds; `rows` is the
+// table's row count, two for each contact.  Returns
 // cudaGetLastError() as an int (0 on success).
 extern "C" int rollout_chain_f32(
     const float* K, const float* zrx, const float* zrw, const float* ur,
@@ -445,16 +565,18 @@ extern "C" int rollout_chain_f32(
     const float* x0, const float* up0, const float* pdiag, const float* pq,
     const float* KUT, const float* tau, const int* pair_i,
     const float* pair_f, float* xs, float* us, int lanes, int T, int nq,
-    int m, int nz, int pairs, int iters, int canon, void* stream) {
+    int m, int nz, int pairs, int rows, int iters, int canon,
+    void* stream) {
   if (lanes < 1 || T < 1 || nq < 1 || nq > kMaxNq || m < 1 || m > kMaxM ||
-      pairs < 1 || 2 * pairs > kMaxRows || iters < 0 ||
+      pairs < 1 || rows < 2 * pairs || rows > kMaxRows || rows % 2 ||
+      iters < 0 ||
       (nz != nq && nz != nq + m) || (zrw == nullptr) != (nz == nq) ||
       (rlb == nullptr) != (rub == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   rollout_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
       K, zrx, zrw, ur, lb, ub, rlb, rub, x0, up0, pdiag, pq, KUT, tau,
-      pair_i, pair_f, xs, us, T, nq, m, nz, pairs, iters, canon);
+      pair_i, pair_f, xs, us, T, nq, m, nz, pairs, rows, iters, canon);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Host side of kernel K4, the whole line-searched contact rollout chain.
 
 ``linesearch_rollout_cuda`` flattens the model into the pair table of
-``rollout.make_consts`` (cached per model and device), turns the bound rows
+``rollout.make_consts`` (cached per model and device; each pair's first
+row and contact count included), turns the bound rows
 finite as ``rollout.bound_rows`` does, and launches ``csrc/rollout.cu``,
 one block per line-search lane, on PyTorch's current stream, or raises;
 there is no fallback.  It is the contact model's ``ls_rollout_fn``, which
@@ -27,7 +28,7 @@ _consts_cache: dict = {}
 
 def _bind(lib):
     lib.rollout_chain_f32.argtypes = ([ctypes.c_void_p] * 18
-                                      + [ctypes.c_int] * 8
+                                      + [ctypes.c_int] * 9
                                       + [ctypes.c_void_p])
     lib.rollout_chain_f32.restype = ctypes.c_int
 
@@ -46,7 +47,9 @@ def linesearch_rollout_cuda(model, x0, u_prev0, K, z_ref_x, z_ref_w, u_ref,
                             lb, ub, rel_lb, rel_ub):
     """Launch K4.  Shapes as ``rollout.linesearch_rollout_plain``; every
     tensor f32 on one CUDA device.  Raises on anything else, and on a model
-    that ``rollout.supports_model`` refuses."""
+    that ``rollout.supports_model`` refuses: a pair kind the narrow phase
+    does not have, or more than ``rollout.MAX_ROWS`` rows, counted two for
+    each contact."""
     global LAUNCHES
     if not rollout.supports_model(model):
         raise ValueError(f"the rollout kernel does not take model "
@@ -91,7 +94,7 @@ def linesearch_rollout_cuda(model, x0, u_prev0, K, z_ref_x, z_ref_w, u_ref,
     lib = LIB.load()
     with torch.cuda.device(device):
         err = lib.rollout_chain_f32(
-            *ptrs, A, T, nq, m, nz, len(model.pairs),
+            *ptrs, A, T, nq, m, nz, len(model.pairs), c["rows"],
             int(model.qp_iters_ws), int(model.canon_warm_duals),
             stream_of(device))
     LIB.check(err, "rollout kernel")

@@ -11,16 +11,19 @@ the kernel's plain version.  On CPU tensors the solver's own line-search
 loop runs the warm chain (``step_ws``), which the tests hold to this one.
 
 Both walk the same flattened description of the model (``make_consts``):
-for every contact pair, one record per side naming the shape kind, the body
-kind and its indices and parameters.  The plain assembly below reads that
-table exactly as the kernel does, so the CPU tests check the table too.
+for every contact pair, its first row and contact count, then one record
+per side naming the shape kind, the body kind and its indices and
+parameters.  The plain assembly below reads that table exactly as the
+kernel does, so the CPU tests check the table too.
 
-Scope (``supports_model``): Anitescu models whose pairs are capsule (an
-Arm2D link) against circle, or halfspace against circle, either way round;
-circles on a FreeBody2D (centred) or a StaticBody.  The other pair kinds of
-the JAX package's whole-chain kernel (circle-circle and the box kinds)
-are not in the CUDA narrow phase yet; models that use them keep the
-solver's plain rollout loop.
+Scope (``supports_model``, the JAX package's whole-chain kernel's): Anitescu
+models whose pairs are one of the eleven kinds of ``_PAIR_KINDS``, over
+circles, capsules, centred boxes and halfspaces, on a StaticBody, a
+FreeBody2D (circles and boxes centred on the body), an Arm2D (each link a
+capsule) or a PrismaticFinger2D (a capsule, or a circle at length 0).  A
+circle or capsule against a box, and a box against a halfspace, give
+several contacts (a capsule's two ends; a box's four corners), each with
+its two rows.
 """
 from __future__ import annotations
 
@@ -33,18 +36,36 @@ from ...ops.linalg import solve_spd
 
 Tensor = torch.Tensor
 
-# Table layout, shared with csrc/rollout.cu.
+# Table layout, shared with csrc/rollout.cu.  Per side:
+#   ints   shape, body, i0, i1, i2, idx[MAX_LINKS]
+#   floats radius, v0, v1, s, base y, base z, angle offset,
+#          link_lengths[MAX_LINKS]
+# by body kind:
+#   static     circle: (v0, v1) centre; halfspace: (v0, v1) normal, s offset
+#   free       (i0, i1) position, i2 rotation or -1; box: (v0, v1) half
+#              extents
+#   arm        i0 link index, idx joint indices; base, angle offset, lengths
+#   finger     (i0, i1) base position, i2 base rotation or -1, idx[0] slide;
+#              (v0, v1) slide axis, s length, base (y, z) rest offset
+# Per pair: first row, contact count, side a, side b; mu, side a, side b.
 MAX_LINKS = 4
-SIDE_INTS = 5 + MAX_LINKS     # shape, body, i0, i1, i2, joint_idx[MAX_LINKS]
-SIDE_FLOATS = 7 + MAX_LINKS   # radius, v0, v1, offset, base y, base z,
-#                               angle offset, link_lengths[MAX_LINKS]
-PAIR_INTS = 2 * SIDE_INTS
-PAIR_FLOATS = 1 + 2 * SIDE_FLOATS   # mu, side a, side b
-SHAPE_CIRCLE, SHAPE_CAPSULE, SHAPE_HALFSPACE = 0, 1, 2
-BODY_STATIC, BODY_FREE, BODY_ARM = 0, 1, 2
+SIDE_INTS = 5 + MAX_LINKS
+SIDE_FLOATS = 7 + MAX_LINKS
+PAIR_INTS = 2 + 2 * SIDE_INTS
+PAIR_FLOATS = 1 + 2 * SIDE_FLOATS
+SHAPE_CIRCLE, SHAPE_CAPSULE, SHAPE_HALFSPACE, SHAPE_BOX = 0, 1, 2, 3
+BODY_STATIC, BODY_FREE, BODY_ARM, BODY_FINGER = 0, 1, 2, 3
+_SHAPES = {"circle": SHAPE_CIRCLE, "capsule": SHAPE_CAPSULE,
+           "halfspace": SHAPE_HALFSPACE, "box": SHAPE_BOX}
 
-_PAIR_KINDS = (("capsule", "circle"), ("circle", "capsule"),
-               ("halfspace", "circle"), ("circle", "halfspace"))
+_PAIR_KINDS = (
+    ("capsule", "circle"), ("circle", "capsule"),
+    ("halfspace", "circle"), ("circle", "halfspace"),
+    ("circle", "circle"),
+    ("box", "circle"), ("circle", "box"),
+    ("capsule", "box"), ("box", "capsule"),
+    ("halfspace", "box"), ("box", "halfspace"),
+)
 # The kernel keeps a lane's whole QP in shared memory.
 MAX_ROWS = 64
 MAX_NQ = 16
@@ -64,28 +85,44 @@ def _body_kind(body, shape_idx):
         if isinstance(s, geom.Circle):
             return "circle"
         return None
+    if isinstance(body, geom.PrismaticFinger2D):
+        return "capsule" if body.length > 0 else "circle"
     if isinstance(body, geom.FreeBody2D):
         s = body.shapes[shape_idx]
-        if isinstance(s, geom.Circle) and tuple(s.center) == (0.0, 0.0):
-            return "circle"
+        if isinstance(s, (geom.Circle, geom.Box)) \
+                and tuple(s.center) == (0.0, 0.0):
+            return "circle" if isinstance(s, geom.Circle) else "box"
         return None
     return None
 
 
+def _contacts(kinds) -> int:
+    """Contacts of a pair kind: a box against a halfspace touches at its
+    four corners, a capsule against a box at its two ends."""
+    if set(kinds) == {"box", "halfspace"}:
+        return 4
+    if set(kinds) == {"box", "capsule"}:
+        return 2
+    return 1
+
+
+def _pair_kinds(model, pair):
+    return (_body_kind(model.bodies[pair.body_a], pair.shape_a),
+            _body_kind(model.bodies[pair.body_b], pair.shape_b))
+
+
 def supports_model(model) -> bool:
     """True if every contact pair is one the CUDA narrow phase implements
-    and the model fits the kernel's shared-memory bounds."""
+    and the model fits the kernel's shared-memory bounds (at most 64
+    contact rows, two for each contact)."""
     if model.contact_model != "anitescu" or not model.pairs:
         return False
-    if (model.nq > MAX_NQ or model.dim_u > MAX_M
-            or model.n_constraint_rows() > MAX_ROWS):
+    if model.nq > MAX_NQ or model.dim_u > MAX_M:
         return False
-    for pair in model.pairs:
-        kinds = (_body_kind(model.bodies[pair.body_a], pair.shape_a),
-                 _body_kind(model.bodies[pair.body_b], pair.shape_b))
-        if kinds not in _PAIR_KINDS:
-            return False
-    return True
+    kinds = [_pair_kinds(model, pair) for pair in model.pairs]
+    if any(k not in _PAIR_KINDS for k in kinds):
+        return False
+    return 2 * sum(_contacts(k) for k in kinds) <= MAX_ROWS
 
 
 def chain_gate(model) -> bool:
@@ -133,33 +170,46 @@ def _hessian_constants(model):
     return p_diag, pq_vec, KU, tau
 
 
-def _side_record(body, shape_idx):
+def _side_record(body, shape_idx, kind):
     """(ints, floats) of one side of a pair; see the layout constants."""
     ints = np.zeros(SIDE_INTS, np.int32)
     flts = np.zeros(SIDE_FLOATS, np.float32)
+    ints[0] = _SHAPES[kind]
     ints[4] = -1
     if isinstance(body, geom.Arm2D):
-        ints[0], ints[1], ints[2] = SHAPE_CAPSULE, BODY_ARM, shape_idx
+        ints[1], ints[2] = BODY_ARM, shape_idx
         ints[5:5 + len(body.joint_idx)] = body.joint_idx
         flts[0] = body.radius
         flts[4:6] = body.base
         flts[6] = body.angle_offset
         flts[7:7 + len(body.link_lengths)] = body.link_lengths
+    elif isinstance(body, geom.PrismaticFinger2D):
+        ints[1] = BODY_FINGER
+        ints[2], ints[3] = body.idx_base_pos
+        if body.idx_base_rot is not None:
+            ints[4] = body.idx_base_rot
+        ints[5] = body.idx_slide
+        flts[0] = body.radius
+        flts[1:3] = body.axis
+        flts[3] = body.length
+        flts[4:6] = body.offset
     elif isinstance(body, geom.FreeBody2D):
         s = body.shapes[shape_idx]
-        ints[0], ints[1] = SHAPE_CIRCLE, BODY_FREE
+        ints[1] = BODY_FREE
         ints[2], ints[3] = body.idx_pos
-        ints[4] = -1 if body.idx_rot is None else body.idx_rot
-        flts[0] = s.radius
+        if body.idx_rot is not None:
+            ints[4] = body.idx_rot
+        if kind == "box":
+            flts[1:3] = s.half
+        else:
+            flts[0] = s.radius
     else:
         s = body.shapes[shape_idx]
         ints[1] = BODY_STATIC
-        if isinstance(s, geom.HalfSpace):
-            ints[0] = SHAPE_HALFSPACE
+        if kind == "halfspace":
             flts[1:3] = s.normal
             flts[3] = s.offset
         else:
-            ints[0] = SHAPE_CIRCLE
             flts[0] = s.radius
             flts[1:3] = s.center
     return ints, flts
@@ -168,69 +218,117 @@ def _side_record(body, shape_idx):
 def make_consts(model, device="cpu"):
     """The constants the chain needs, as f32/i32 tensors on ``device``:
     ``pdiag``/``pq``/``tau`` (nq,), ``KUT`` (m, nq), and the pair table
-    ``pair_i`` (pairs, PAIR_INTS) / ``pair_f`` (pairs, PAIR_FLOATS)."""
+    ``pair_i`` (pairs, PAIR_INTS) / ``pair_f`` (pairs, PAIR_FLOATS).
+    Raises on a pair kind outside ``_PAIR_KINDS``."""
     p_diag, pq_vec, KU, tau = _hessian_constants(model)
     pair_i = np.zeros((len(model.pairs), PAIR_INTS), np.int32)
     pair_f = np.zeros((len(model.pairs), PAIR_FLOATS), np.float32)
+    row = 0
     for k, pair in enumerate(model.pairs):
-        ia, fa = _side_record(model.bodies[pair.body_a], pair.shape_a)
-        ib, fb = _side_record(model.bodies[pair.body_b], pair.shape_b)
-        pair_i[k] = np.concatenate([ia, ib])
+        kinds = _pair_kinds(model, pair)
+        if kinds not in _PAIR_KINDS:
+            raise ValueError(f"pair {k} of model {model.name!r}: no "
+                             f"whole-chain narrow phase for {kinds}")
+        ia, fa = _side_record(model.bodies[pair.body_a], pair.shape_a,
+                              kinds[0])
+        ib, fb = _side_record(model.bodies[pair.body_b], pair.shape_b,
+                              kinds[1])
+        pair_i[k] = np.concatenate([[row, _contacts(kinds)], ia, ib])
         pair_f[k] = np.concatenate([[pair.mu], fa, fb])
+        row += 2 * _contacts(kinds)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {"pdiag": t(p_diag), "pq": t(pq_vec), "KUT": t(KU.T),
-            "tau": t(tau), "pair_i": t(pair_i), "pair_f": t(pair_f)}
+            "tau": t(tau), "pair_i": t(pair_i), "pair_f": t(pair_f),
+            "rows": row}
 
 
 # ---------------------------------------------------------------------------
 # Plain assembly from the pair table (the kernel's narrow phase, batched)
 # ---------------------------------------------------------------------------
 
-def _side_geometry(si, sf, x):
-    """World shape of one side for lanes x (B, nq): (kind, params) with
-    circle (c, r), capsule (a0, a1, r, joints) or halfspace (n, offset)."""
-    shape, body = int(si[0]), int(si[1])
-    B = x.shape[0]
-    if shape == SHAPE_HALFSPACE:
-        return ("halfspace", (float(sf[1]), float(sf[2])), float(sf[3]))
-    if shape == SHAPE_CIRCLE:
-        if body == BODY_FREE:
-            c = torch.stack([x[:, int(si[2])], x[:, int(si[3])]], dim=-1)
-        else:
-            c = x.new_tensor([float(sf[1]), float(sf[2])]).expand(B, 2)
-        return ("circle", c, float(sf[0]))
-    k = int(si[2])
-    pts = [x.new_tensor([float(sf[4]), float(sf[5])]).expand(B, 2)]
+def _col(x, i):
+    return x[:, int(i)]
+
+
+def _frame(si, x):
+    """Origin (B, 2) and angle (B,) of a free body or a finger's base."""
+    c = torch.stack([_col(x, si[2]), _col(x, si[3])], dim=-1)
+    th = _col(x, si[4]) if int(si[4]) >= 0 else torch.zeros_like(x[:, 0])
+    return c, th
+
+
+def _arm_joints(si, sf, x):
+    """Base and joints 0..k+1 of an Arm2D up to link k = si[2]."""
+    pts = [x.new_tensor([float(sf[4]), float(sf[5])]).expand(x.shape[0], 2)]
     acc = None
-    for j in range(k + 1):
-        a = x[:, int(si[5 + j])]
+    for j in range(int(si[2]) + 1):
+        a = _col(x, si[5 + j])
         acc = a if acc is None else acc + a
         ang = acc + float(sf[6])
         d = torch.stack([torch.sin(ang), -torch.cos(ang)], dim=-1) \
             * float(sf[7 + j])
         pts.append(pts[-1] + d)
-    return ("capsule", pts[k], pts[k + 1], float(sf[0]), pts)
+    return pts
 
 
-def _side_jacobian(si, geo, p, x):
+def _side_geometry(si, sf, x):
+    """World shape of one side for lanes x (B, nq), as
+    ``geometry.shape_contact`` takes it: ("circle", c, r),
+    ("capsule", a0, a1, r), ("halfspace", n, offset) or
+    ("box", c, half, th)."""
+    shape, body = int(si[0]), int(si[1])
+    if shape == SHAPE_HALFSPACE:
+        return ("halfspace", (float(sf[1]), float(sf[2])), float(sf[3]))
+    r = float(sf[0])
+    if body == BODY_STATIC:
+        c = x.new_tensor([float(sf[1]), float(sf[2])]).expand(x.shape[0], 2)
+        return ("circle", c, r)
+    if body == BODY_FREE:
+        c, th = _frame(si, x)
+        if shape == SHAPE_BOX:
+            return ("box", c, (float(sf[1]), float(sf[2])), th)
+        return ("circle", c, r)
+    if body == BODY_ARM:
+        pts = _arm_joints(si, sf, x)
+        k = int(si[2])
+        return ("capsule", pts[k], pts[k + 1], r)
+    # Finger: tip = base + R(th) (offset + slide * axis); a capsule hangs
+    # from the tip straight down in the base frame.
+    c, th = _frame(si, x)
+    slide = _col(x, si[5])
+    local = torch.stack([float(sf[4]) + slide * float(sf[1]),
+                         float(sf[5]) + slide * float(sf[2])], dim=-1)
+    tip = c + geom._rot_apply(th, local)
+    if shape == SHAPE_CAPSULE:
+        return ("capsule", tip,
+                tip + geom._rot_apply(th, (0.0, -float(sf[3]))), r)
+    return ("circle", tip, r)
+
+
+def _side_jacobian(si, sf, p, x):
     """(Jy, Jz), each (B, nq), of the point p (B, 2) on one side."""
     body = int(si[1])
-    nq = x.shape[1]
-    eye = torch.eye(nq, dtype=x.dtype, device=x.device)
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
     Jy = torch.zeros_like(x)
     Jz = torch.zeros_like(x)
-    if body == BODY_FREE:
+    if body in (BODY_FREE, BODY_FINGER):
+        # Translation of the body or base, rotation about its origin.
+        c, th = _frame(si, x)
         Jy = Jy + eye[int(si[2])]
         Jz = Jz + eye[int(si[3])]
         if int(si[4]) >= 0:
-            c = geo[1]
             Jy = Jy + (-(p[:, 1] - c[:, 1]))[:, None] * eye[int(si[4])]
             Jz = Jz + (p[:, 0] - c[:, 0])[:, None] * eye[int(si[4])]
+        if body == BODY_FINGER:
+            # The slide, along the axis turned by the base angle.
+            a = geom._rot_apply(th, (float(sf[1]), float(sf[2])))
+            Jy = Jy + a[:, 0:1] * eye[int(si[5])]
+            Jz = Jz + a[:, 1:2] * eye[int(si[5])]
     elif body == BODY_ARM:
-        pts = geo[4]
+        pts = _arm_joints(si, sf, x)
         for j in range(int(si[2]) + 1):
             e = eye[int(si[5 + j])]
             Jy = Jy + (-(p[:, 1] - pts[j][:, 1]))[:, None] * e
@@ -238,42 +336,31 @@ def _side_jacobian(si, geo, p, x):
     return Jy, Jz
 
 
-def _narrow_phase(ga, gb):
-    """(phi, p, n) of one pair, n from A into B."""
-    if ga[0] == "capsule" and gb[0] == "circle":
-        return geom.capsule_circle(ga[1], ga[2], ga[3], gb[1], gb[2])
-    if ga[0] == "circle" and gb[0] == "capsule":
-        phi, p, n = geom.capsule_circle(gb[1], gb[2], gb[3], ga[1], ga[2])
-        return phi, p, -n
-    if ga[0] == "halfspace" and gb[0] == "circle":
-        return geom.circle_halfspace(gb[1], gb[2], ga[1], ga[2])
-    if ga[0] == "circle" and gb[0] == "halfspace":
-        phi, p, n = geom.circle_halfspace(ga[1], ga[2], gb[1], gb[2])
-        return phi, p, -n
-    raise NotImplementedError((ga[0], gb[0]))
-
-
 def assemble(consts, x: Tensor, u: Tensor):
     """b (B, nq), C (B, rows, nq), d (B, rows) in the solver's C dq <= d
-    form (Anitescu), for lanes x (B, nq), u (B, m), from the pair table."""
+    form (Anitescu), for lanes x (B, nq), u (B, m), from the pair table.
+    The narrow phase is ``geometry.shape_contact``: the kernel's contact
+    order, normal signs and tie rules."""
     b = consts["pq"] * x - u @ consts["KUT"] - consts["tau"]
     pair_i = consts["pair_i"].cpu().numpy()
     pair_f = consts["pair_f"].cpu().numpy()
     C_rows, d_cols = [], []
     for ints, flts in zip(pair_i, pair_f):
-        ia, ib = ints[:SIDE_INTS], ints[SIDE_INTS:]
+        ia, ib = ints[2:2 + SIDE_INTS], ints[2 + SIDE_INTS:]
         fa, fb = flts[1:1 + SIDE_FLOATS], flts[1 + SIDE_FLOATS:]
-        ga, gb = _side_geometry(ia, fa, x), _side_geometry(ib, fb, x)
-        phi, p, n = _narrow_phase(ga, gb)
-        Jay, Jaz = _side_jacobian(ia, ga, p, x)
-        Jby, Jbz = _side_jacobian(ib, gb, p, x)
-        ry, rz = Jby - Jay, Jbz - Jaz
-        ny, nz = n[:, 0:1], n[:, 1:2]
-        Jn = ny * ry + nz * rz
-        Jt = (-nz) * ry + ny * rz
         mu = float(flts[0])
-        C_rows += [-(Jn + mu * Jt), -(Jn - mu * Jt)]
-        d_cols += [phi, phi]
+        contacts = geom.shape_contact(_side_geometry(ia, fa, x),
+                                      _side_geometry(ib, fb, x))
+        assert len(contacts) == ints[1]
+        for phi, p, n in contacts:
+            Jay, Jaz = _side_jacobian(ia, fa, p, x)
+            Jby, Jbz = _side_jacobian(ib, fb, p, x)
+            ry, rz = Jby - Jay, Jbz - Jaz
+            ny, nz = n[:, 0:1], n[:, 1:2]
+            Jn = ny * ry + nz * rz
+            Jt = (-nz) * ry + ny * rz
+            C_rows += [-(Jn + mu * Jt), -(Jn - mu * Jt)]
+            d_cols += [phi, phi]
     return b, torch.stack(C_rows, dim=1), torch.stack(d_cols, dim=1)
 
 
@@ -369,7 +456,7 @@ def linesearch_rollout_plain(model, x0, u_prev0, K, z_ref_x, z_ref_w,
     x = x0.expand(A, nq)
     up = u_prev0.expand(A, m)
     dq = torch.zeros(A, nq, device=dev)
-    lam = torch.ones(A, model.n_constraint_rows(), device=dev)
+    lam = torch.ones(A, consts["rows"], device=dev)
     xs, us = [x], []
     for t in range(T):
         fb = (x - z_ref_x[:, t]) @ K[t, :, :nq].T

@@ -1,0 +1,192 @@
+"""Port parity: the box slices (box pushing, box pivoting) and the box and
+prismatic-finger models of irs_mpc_torch against irs_mpc_tpu, on the CPU
+(the plain versions of K1-K4).
+
+The configurations are the JAX package's examples
+(``examples/box_pushing.py``, ``examples/box_pivoting.py``), carried into
+the port with ``convert``; ``chip_smoke.py`` builds the same ones.
+
+* The four factories equal the carried JAX models.
+* K4's plain version, ``rollout.linesearch_rollout_plain``, open loop (zero
+  gains) against the JAX package's warm ``step_ws`` scan on box pivoting
+  (canonicalised duals), box pushing (relative input bounds) and plate
+  pickup (prismatic fingers), T=8, two lanes: atol 5e-3 on the states,
+  the tolerance of the JAX package's own check of its kernel against that
+  scan; the clipped inputs exactly.
+* One box-pushing iteration with the JAX iteration's draws injected.  Its
+  estimation sweep agrees with the JAX package's to 1e-5 at p99 of the
+  samples, but not everywhere: where the pusher is driven deep into the
+  box, the sample QP's active rows carry duals of ~400 and its float32
+  solve is determined only to ~1e-3 (measured at T=20, S=30: 2 of 600
+  samples differ by up to 2.9e-3; against a float64 solve the port is off
+  by 3.5e-3, the JAX package by 1.5e-3).  The fit carries that into the
+  plan, so the iteration is held at atol 1e-2 on the accepted trajectories
+  (measured 5.1e-3) and rtol 5e-3 on the cost channels (measured 1.9e-3),
+  not at the planar-hand check's 1e-4.
+* ``chip_smoke``'s box solvers are the JAX package's examples, carried
+  across: the same model, parameters and smoothing schedule.
+
+The goldens are in ``tests/test_torch_box_golden.py``.
+"""
+import dataclasses
+import importlib
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+
+import box_pushing  # noqa: E402
+import chip_smoke  # noqa: E402
+import irs_mpc_torch as tmpc  # noqa: E402
+from irs_mpc_tpu.models.contact import systems as jsys  # noqa: E402
+from irs_mpc_tpu.ops.estimators import _sample_perturbations  # noqa: E402
+from irs_mpc_torch import convert  # noqa: E402
+from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout  # noqa: E402
+from irs_mpc_torch.models.contact import rollout as trollout  # noqa: E402
+from irs_mpc_torch.ops import cuda_admm, cuda_riccati  # noqa: E402
+
+KERNELS = (cuda_riccati, cuda_qp, cuda_admm, cuda_rollout)
+FACTORIES = ["box_pushing", "box_pivoting", "plate_pickup", "carrots"]
+
+
+def _launches():
+    return [mod.LAUNCHES for mod in KERNELS]
+
+
+@pytest.mark.parametrize("name", FACTORIES)
+def test_factory_matches_carried_model(name):
+    jm = getattr(jsys, f"make_{name}")()
+    assert getattr(tmpc, f"make_{name}")() == convert.model_from_jax(jm)
+
+
+def _jax_warm_chain(jm, q0, u_seq):
+    """The JAX package's warm chain: ``step_ws`` scanned over u_seq."""
+    sys_ = jm.system()
+
+    def f(carry, u):
+        x, ws = carry
+        xn, ws = sys_.step_ws_fn(x, u, ws)
+        return (xn, ws), xn
+
+    _, xs = jax.lax.scan(f, (jnp.asarray(q0), sys_.ws_init_fn()),
+                         jnp.asarray(u_seq))
+    return np.asarray(xs)
+
+
+# (model, initial configuration, drift of the commanded inputs per knot,
+# relative input bound or None)
+CHAINS = {
+    "box_pivoting": ([0.45, 0.5, 0.0, -0.17, 0.8], [0.01, 0.0], None),
+    "box_pushing": ([0.0, 0.5, 0.0, 0.0, -0.2], [0.0, 0.035], 0.04),
+    "plate_pickup": (chip_smoke.CONTACT_Q0["plate_pickup"],
+                     [0.0, 0.0, 0.0, 0.0, 0.0], None),
+}
+
+
+@pytest.mark.parametrize("name", list(CHAINS))
+def test_plain_chain_matches_jax_warm_scan(name):
+    jm = getattr(jsys, f"make_{name}")()
+    tm = convert.model_from_jax(jm)
+    q0, drift, rel = CHAINS[name]
+    T, A, nq, m = 8, 2, tm.nq, tm.dim_u
+    q0 = np.asarray(q0, np.float32)
+    u0 = q0[tm.indices_u_into_x()]
+    rng = np.random.RandomState(0)
+    u_seq = (u0 + np.arange(1, T + 1)[:, None] * np.asarray(drift)
+             + np.cumsum(rng.randn(T, m) * 0.01, axis=0)).astype(np.float32)
+    # The relative bounds as the chain applies them, knot by knot.
+    u_clip, prev = u_seq.copy(), u0
+    if rel is not None:
+        r = np.float32(rel)
+        for t in range(T):
+            u_clip[t] = np.minimum(np.maximum(u_seq[t], prev - r), prev + r)
+            prev = u_clip[t]
+        assert np.abs(u_clip - u_seq).max() > 1e-3      # the clip binds
+    rel_b = (None if rel is None
+             else (torch.full((T, m), -rel), torch.full((T, m), rel)))
+    xs, us = trollout.linesearch_rollout_plain(
+        tm, torch.from_numpy(q0), torch.from_numpy(u0),
+        torch.zeros(T, m, nq + m), torch.zeros(A, T, nq),
+        torch.zeros(A, T, m), torch.from_numpy(u_seq).expand(A, T, m),
+        torch.full((T, m), -torch.inf), torch.full((T, m), torch.inf),
+        *(rel_b or (None, None)))
+    np.testing.assert_allclose(us[1].numpy(), u_clip, atol=1e-6)
+    want = _jax_warm_chain(jm, q0, u_clip)
+    np.testing.assert_allclose(xs[0, 1:].numpy(), want, atol=5e-3)
+    np.testing.assert_allclose(xs[1, 1:].numpy(), want, atol=5e-3)
+    # The chain moves the object: the contacts are engaged.
+    assert np.abs(want[-1, :3] - q0[:3]).max() > 1e-3
+
+
+# The injected iteration runs at a cut horizon and sample count: the JAX
+# package compiles its iteration for each shape.
+INJ_T, INJ_S = 20, 30
+
+
+def test_injected_box_pushing_iteration_matches_jax():
+    js, jm = box_pushing.build_solver(num_samples=INJ_S, T=INJ_T)
+    p = js.params
+    _, k_est = jax.random.split(js.key)
+    sx, su = p.smoothing.stds(jnp.asarray(1.0, jnp.float32), jm.nq, jm.dim_u)
+    keys = jax.random.split(k_est, INJ_T)
+    dx, du = jax.vmap(lambda k: _sample_perturbations(k, sx, su, INJ_S))(
+        keys)
+    jx, ju, _, jcvec = (np.asarray(o) for o in js._iteration_jit(
+        js.x_trj, js.u_trj, js.key, jnp.asarray(1.0, jnp.float32)))
+
+    tm = convert.model_from_jax(jm)
+    x_nom, u_nom = np.asarray(js.x_trj[:-1]), np.asarray(js.u_trj)
+    du = torch.from_numpy(np.array(du))
+    _, jfd = jax.jit(lambda x, u, d: jm.estimation_surrogate().est_sweep_fn(
+        x, u, None, d))(x_nom, u_nom, du.numpy())
+    _, tfd = tm.estimation_surrogate().est_sweep_fn(
+        torch.from_numpy(x_nom), torch.from_numpy(u_nom), None, du)
+    gap = np.abs(tfd.numpy() - np.asarray(jfd)).max(-1)
+    assert np.quantile(gap, 0.99) < 1e-5 and gap.max() < 1e-2
+
+    tp = convert.params_from_jax(
+        p, decay=lambda it: 0.3 ** it / 0.3,
+        estimation_system=tm.estimation_surrogate())
+    ts = tmpc.IrsMpc(tm.system(), tp)
+    assert ts.system.ls_rollout_fn is not None
+    assert abs(ts.cost - js.cost) <= 1e-5 * js.cost
+    before = _launches()
+    step = ts._iteration(ts.x_trj, ts.u_trj, 1, perturbations=(
+        torch.from_numpy(np.array(dx)), du))
+    assert _launches() == before
+    np.testing.assert_allclose(step.cvec.numpy(), jcvec, rtol=5e-3,
+                               atol=1e-6)
+    np.testing.assert_allclose(step.x.numpy(), jx, atol=1e-2)
+    np.testing.assert_allclose(step.u.numpy(), ju, atol=1e-2)
+    assert float(step.cvec[0]) < ts.cost
+
+
+@pytest.mark.parametrize("name", ["box_pushing", "box_pivoting"])
+def test_carried_example_gives_the_smoke_configuration(name):
+    """``chip_smoke``'s solver is the JAX example's, carried across."""
+    js, jm = importlib.import_module(name).build_solver(num_samples=4, T=6)
+    smoke, smoke_model = getattr(chip_smoke, f"{name}_solver")(
+        "cpu", T=6, num_samples=4)
+    assert convert.model_from_jax(jm) == smoke_model
+    for f in dataclasses.fields(smoke.params):
+        if f.name in ("smoothing", "estimation_system"):
+            continue
+        a, b = getattr(js.params, f.name), getattr(smoke.params, f.name)
+        if isinstance(b, np.ndarray):
+            a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    jsm, tsm = js.params.smoothing, smoke.params.smoothing
+    for f in ("num_samples", "std_x", "std_u", "decay_std_x"):
+        assert np.all(np.asarray(getattr(jsm, f))
+                      == np.asarray(getattr(tsm, f))), f
+    for it in (1, 2, 5):
+        assert float(tsm.decay(torch.tensor(float(it)))) == pytest.approx(
+            float(jsm.decay(jnp.asarray(float(it)))), rel=1e-6)

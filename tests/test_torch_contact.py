@@ -21,8 +21,13 @@ seed, go through both.
   O(1) of its largest entry; there the test only asks for finite values
   and the ball-arm coupling in both.
 * The whole-chain rollout's model table: the plain assembly from it
-  against the JAX package's kernel-safe assembly (``assemble_xla``), atol
-  1e-5, and ``supports_model`` / ``chain_gate`` on all five models.
+  against the JAX package's kernel-safe assembly (``assemble_xla``) and the
+  port's own geometry, atol 1e-5, for all eleven pair kinds in both orders
+  (the four bundled models within K4's limits and ``chip_smoke``'s
+  circle-circle model, each also with its pairs' sides swapped), at seeded
+  states and, for the boxes, at states inside the box, at a face tie and
+  at the box's centre (ties pick axis 0, sign(0) is +1); and
+  ``supports_model`` / ``chain_gate`` on all five models and that one.
 """
 import dataclasses
 
@@ -35,7 +40,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from irs_mpc_tpu.models.contact import geometry as jgeom  # noqa: E402
+import chip_smoke  # noqa: E402
 from irs_mpc_tpu.models.contact import pallas_rollout as jpr  # noqa: E402
+from irs_mpc_tpu.models.contact import quasistatic as jqs  # noqa: E402
 from irs_mpc_tpu.models.contact import systems as jsys  # noqa: E402
 from irs_mpc_torch import convert  # noqa: E402
 from irs_mpc_torch.models.contact import geometry as tgeom  # noqa: E402
@@ -59,6 +66,8 @@ def _q0(name, model):
         return np.array([0., 0.5, 0., 0., -0.12], np.float32)
     if name == "box_pivoting":
         return np.array([0.45, 0.5, 0., -0.15, 0.5], np.float32)
+    if name == "circle_pair":
+        return np.asarray(chip_smoke.CONTACT_Q0[name], np.float32)
     rng = np.random.RandomState(0)              # carrots
     q = {"gripper": np.array([-0.85, 0.22, 0.0, -0.05, -0.05])}
     for k in range(20):
@@ -76,7 +85,10 @@ def _states(name, model, B=6, scale=0.05, seed=0):
 
 
 def _models(name):
-    jm = getattr(jsys, f"make_{name}")()
+    if name == "circle_pair":
+        jm = chip_smoke.circle_pair_model(jgeom, jqs)
+    else:
+        jm = getattr(jsys, f"make_{name}")()
     return jm, convert.model_from_jax(jm)
 
 
@@ -189,12 +201,31 @@ def test_jacobian_matches_jax_jacfwd():
         assert np.isfinite(J).all() and np.abs(J[:, :3, 7:]).max() > 1e-2
 
 
-@pytest.mark.parametrize("name", ["planar_hand"])
-def test_table_assembly_matches_jax_kernel_assembly(name):
+# Box states (box y, z, th; hand y, z) of the two box models: the hand
+# inside a turned box, on the diagonal of the box (both faces equally near:
+# the tie picks axis 0) and at the box's centre (a tie, and sign(0) = +1).
+BOX_STATES = np.array([[0.0, 0.5, 0.3, 0.1, 0.4],
+                       [0.0, 0.5, 0.0, 0.25, 0.75],
+                       [0.0, 0.5, 0.0, 0.0, 0.5]], np.float32)
+
+
+@pytest.mark.parametrize("swapped", [False, True])
+@pytest.mark.parametrize("name", ["planar_hand", "box_pushing",
+                                  "box_pivoting", "plate_pickup",
+                                  "circle_pair"])
+def test_table_assembly_matches_jax_kernel_assembly(name, swapped):
     jm, tm = _models(name)
+    if swapped:
+        jm, tm = chip_smoke.swap_pairs(jm), chip_smoke.swap_pairs(tm)
+    assert trollout.supports_model(tm) and jpr.supports_model(jm)
     consts = trollout.make_consts(tm)
-    for seed in (0, 1):
-        x, u = _states(name, jm, B=8, scale=0.06, seed=seed)
+    assert consts["rows"] == tm.n_constraint_rows() == jm.n_constraint_rows()
+    for seed in (0, 1, None):
+        x, u = _states(name, jm, B=8, scale=0.06, seed=seed or 0)
+        if seed is None:
+            if not name.startswith("box"):
+                continue
+            x, u = BOX_STATES, BOX_STATES[:, 3:] + np.float32(0.01)
         b, C, d = jpr.assemble_xla(jm, jnp.asarray(x), jnp.asarray(u))
         bt, Ct, dt = trollout.assemble(consts, _t(x), _t(u))
         np.testing.assert_allclose(Ct.numpy(), np.asarray(C), atol=1e-5)
@@ -205,27 +236,29 @@ def test_table_assembly_matches_jax_kernel_assembly(name):
         # ... and the port's own geometry.
         Cg, dg = tm._constraint_rows(_t(x))
         np.testing.assert_allclose(Ct.numpy(), Cg.numpy(), atol=1e-5)
+        np.testing.assert_allclose(dt.numpy(), dg.numpy(), atol=1e-5)
+    if name.startswith("box"):
+        # Inside the box every hand row is a push-out of depth >= 0.1.
+        assert (dt.numpy()[:, -2:] < -0.1).all()
     np.testing.assert_array_equal(consts["pdiag"].numpy(),
                                   jpr._hessian_constants(jm)[0])
 
 
-# (supports_model, chain_gate) of the port.  The CUDA narrow phase covers
-# capsule-circle and halfspace-circle; the box kinds are still to come.
-GATES = {"planar_hand": (True, True), "box_pushing": (False, True),
-         "box_pivoting": (False, True), "plate_pickup": (False, False),
-         "carrots": (False, False)}
+# (supports_model, chain_gate), the JAX package's: plate pickup's fingers
+# keep it off the whole chain, carrots is past the kernel's limits.
+GATES = {"planar_hand": (True, True), "box_pushing": (True, True),
+         "box_pivoting": (True, True), "plate_pickup": (True, False),
+         "carrots": (False, False), "circle_pair": (True, True)}
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ["circle_pair"])
 def test_supports_model_and_chain_gate(name):
     jm, tm = _models(name)
     supported, gated = GATES[name]
-    assert trollout.supports_model(tm) == supported
+    assert trollout.supports_model(tm) == supported == jpr.supports_model(jm)
     assert trollout.chain_gate(tm) == gated == jpr.chain_gate(jm)
     has_fn = tm.system().ls_rollout_fn is not None
     assert has_fn == (supported and gated)
-    # The JAX package's kernel covers more pair kinds; every model the port
-    # admits, it admits too.
-    assert not supported or jpr.supports_model(jm)
+    assert has_fn == (jm.system().ls_rollout_fn is not None)
     lcp = dataclasses.replace(tm, contact_model="lcp")
     assert not trollout.supports_model(lcp)

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
+import irs_mpc_torch  # noqa: E402
 from irs_mpc_torch import IrsMpc, IrsMpcParams, SmoothingConfig, \
     make_pendulum, make_planar_hand  # noqa: E402
 from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout  # noqa: E402
@@ -235,31 +236,13 @@ def test_admm_kernel_on_a_plain_tracking_problem_on_card():
     assert err < chip_smoke.ADMM_TOL
 
 
-def _chain_inputs(aug, rel, A=3, T=10, seed=0):
-    """Line-search inputs around the planar hand's resting state: small
-    random gains and references, and input boxes with an inf and a NaN
-    entry (the NaN side is a no-op)."""
+def _chain_inputs(aug, rel):
+    """Line-search inputs around the planar hand's resting state
+    (``chip_smoke.chain_inputs``: input boxes with an inf and a NaN
+    entry)."""
     model = make_planar_hand()
-    nq, m = model.nq, model.dim_u
-    g = torch.Generator().manual_seed(seed)
-    q0 = torch.from_numpy(model.get_x_from_q_dict(chip_smoke.HAND_Q0))
-    nz = nq + m if aug else nq
-    lb = torch.full((T, m), -0.05)
-    ub = torch.full((T, m), 0.05)
-    lb[:, 0], ub[:, 1] = -torch.inf, float("nan")
-    centre = q0[3:].expand(T, m)
-    args = dict(
-        x0=q0, u_prev0=q0[3:].clone(),
-        K=torch.randn(T, m, nz, generator=g) * 0.5,
-        z_ref_x=q0 + torch.randn(A, T, nq, generator=g) * 0.01,
-        z_ref_w=(q0[3:] + torch.randn(A, T, m, generator=g) * 0.01
-                 if aug else None),
-        u_ref=q0[3:] + torch.randn(A, T, m, generator=g) * 0.03,
-        lb=centre + lb, ub=centre + ub,
-        rel_lb=torch.full((T, m), -0.02) if rel else None,
-        rel_ub=torch.full((T, m), 0.02) if rel else None)
-    return model, {k: (v.cuda() if v is not None else None)
-                   for k, v in args.items()}
+    return model, chip_smoke.chain_inputs(
+        model, chip_smoke.CONTACT_Q0["planar_hand"], aug=aug, rel=rel)
 
 
 @needs_cuda
@@ -280,6 +263,45 @@ def test_rollout_kernel_variants_match_plain_on_card(aug, rel, canon):
     if rel:
         du = us[:, 1:] - us[:, :-1]
         assert du.abs().max().item() <= 0.02 + 1e-5
+
+
+@needs_cuda
+@pytest.mark.parametrize("swapped", [False, True])
+@pytest.mark.parametrize("name", ["planar_hand", "box_pushing",
+                                  "box_pivoting", "plate_pickup",
+                                  "circle_pair"])
+def test_rollout_kernel_on_every_pair_kind_on_card(name, swapped):
+    """All eleven pair kinds, each in both orders: capsule-circle and
+    halfspace-circle (planar hand), box-circle (box pushing), halfspace-box
+    with canonicalised duals (box pivoting), capsule-box on prismatic
+    fingers (plate pickup), circle-circle (``chip_smoke``'s model)."""
+    model = chip_smoke.contact_models()[name]
+    if swapped:
+        model = chip_smoke.swap_pairs(model)
+    for aug, rel in ((True, True), (False, False)):
+        args = chip_smoke.chain_inputs(model, chip_smoke.CONTACT_Q0[name],
+                                       aug=aug, rel=rel)
+        before = cuda_rollout.LAUNCHES
+        xs, us = cuda_rollout.linesearch_rollout_cuda(model, **args)
+        xr, ur = chip_smoke.rollout.linesearch_rollout_plain(model, **args)
+        torch.cuda.synchronize()
+        assert cuda_rollout.LAUNCHES == before + 1
+        assert bool(torch.isfinite(xs).all())
+        assert (xs - xr).abs().max().item() < chip_smoke.CHAIN_ATOL
+        assert (us - ur).abs().max().item() < chip_smoke.CHAIN_ATOL
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", ["box_pushing", "box_pivoting"])
+def test_box_slice_launches_on_card(name):
+    """Per iteration of a box slice: 2 launches of K2 and 1 each of K1,
+    K3 and K4, as the planar hand."""
+    solver, _ = getattr(chip_smoke, f"{name}_solver")("cuda")
+    mods = (cuda_qp, cuda_riccati, cuda_admm, cuda_rollout)
+    before = [mod.LAUNCHES for mod in mods]
+    solver.iterate(2, verbose=False)
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [4, 2, 2, 2]
+    assert solver.cost_best < solver.cost_lst[0]
 
 
 def _cpu_qps(B=4, n=7, m=10):
@@ -372,6 +394,16 @@ def _cpu_chain(A=2, T=3):
     # 35 pairs: 70 contact rows, past the kernel's 64.
     (lambda a: dict(a, model=dataclasses.replace(
         a["model"], pairs=a["model"].pairs * 7)), "does not take model"),
+    # 12 pairs, but 36 contacts (a box on a halfspace touches at four
+    # corners): 72 rows.
+    (lambda a: dict(a, model=dataclasses.replace(
+        irs_mpc_torch.make_box_pivoting(),
+        pairs=irs_mpc_torch.make_box_pivoting().pairs * 4)),
+     "does not take model"),
+    # A kind the narrow phase does not have: an arm link on the ground.
+    (lambda a: dict(a, model=dataclasses.replace(
+        a["model"], pairs=a["model"].pairs + (dataclasses.replace(
+            a["model"].pairs[-1], body_b=1),))), "does not take model"),
 ])
 def test_rollout_wrapper_refuses_what_the_kernel_does_not_take(fault,
                                                                match):
