@@ -24,9 +24,11 @@ exit code:
    iterations, also against a converged 120-iteration solve, and a warm
    start from the duals), and times both at the slice's shapes;
 5. holds K3 against the plain factored ADMM loop on the trajectory QP of
-   the planar-hand slice's first iteration and on five bound-kind
-   combinations of a seeded Δu problem, and K1 against its plain loop on
-   that first-iteration problem, and times both;
+   the planar-hand slice's first iteration, on five bound-kind
+   combinations of a seeded Δu problem and on wide problems in both
+   placements of the knots' operands (n = 50 and 64 with m = 16 in shared
+   memory, and T = 200, n = 16, m = 4 streamed), and K1 against its plain
+   loop on that first-iteration problem, and times both;
 6. holds K4 against the plain lane-batched chain on the line search of the
    slice's first iteration (6 lanes, T=30), and times both;
 7. drives the planar-hand iRS-MPC slice (T=30, 50 samples per knot,
@@ -51,7 +53,14 @@ exit code:
    best at most 12% above 317.41, the same launches; then the same solver
    without its whole-chain rollout (the per-knot warm chain), for its curve;
 12. profiles a box-pushing iteration: each phase synchronised, then the
-   device's busy share and kernels under ``torch.profiler``.
+   device's busy share and kernels under ``torch.profiler``;
+13. holds K3 and K1 against their plain versions on the trajectory QP of
+   the carrots slice's first iteration (T=10, n=45+5, m=5, u box, 20
+   sweeps), then drives the carrots slice (45 dof, 500 contact rows, 30
+   samples per knot, 3 iterations): initial cost 211.8252 within 0.1%,
+   best within 12% of 172.98, per iteration exactly 1 launch each of K1
+   and K3 and none of K2 and K4 (the model is past their limits; its
+   contact solves run as plain PyTorch on the card).
 
 Every kernel's time stands beside its bound, the larger of its operations
 over the card's float32 peak and its bytes over its memory rate.  The last
@@ -71,8 +80,8 @@ import numpy as np
 import torch
 
 from irs_mpc_torch import (IrsMpc, IrsMpcParams, SmoothingConfig,
-                           make_box_pivoting, make_box_pushing, make_pendulum,
-                           make_planar_hand, make_plate_pickup)
+                           make_box_pivoting, make_box_pushing, make_carrots,
+                           make_pendulum, make_planar_hand, make_plate_pickup)
 from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
                                           quasistatic, rollout)
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
@@ -94,6 +103,9 @@ HAND_BEST, HAND_BEST_RTOL = 22.26, 0.12
 BOX_S, BOX_ITERATIONS, BOX_BEST_RTOL = 100, 8, 0.12
 BOX_PUSHING_T, BOX_PUSHING_INITIAL, BOX_PUSHING_BEST = 60, 134.4132, 46.16
 BOX_PIVOTING_T, BOX_PIVOTING_INITIAL, BOX_PIVOTING_BEST = 40, 786.3928, 317.41
+# Carrots at its golden's 3 descents (tests/test_golden_contact.py:65-73).
+CARROTS_T, CARROTS_S, CARROTS_ITERATIONS = 10, 30, 3
+CARROTS_INITIAL, CARROTS_BEST = 211.8252, 172.98
 # K3 and K4 against their plain versions: x, u, K at rtol/atol 1e-3 and
 # the residuals at rtol 1e-2 (the JAX package's whole-loop ADMM check);
 # the chain's xs, us at atol 5e-3 (its whole-chain rollout check).
@@ -290,6 +302,51 @@ def box_pivoting_solver(device, T=BOX_PIVOTING_T, num_samples=BOX_S):
     return IrsMpc(model.system(), params, device=device), model
 
 
+def carrots_solver(device, T=CARROTS_T, num_samples=CARROTS_S,
+                   n_pieces=20):
+    """The carrots configuration of the JAX package's example
+    (``examples/carrots.py:15-68``): a 5-dof gripper and 20 pieces on the
+    ground (45 dof, 500 contact rows), h=1.0, the gripper's reference
+    sweeping through the pile, Δu mode, trust-region input boxes of ±0.15,
+    zero_order_B with decoupled A/B, std_u 0.1 decayed by 1/it**0.8, 20
+    ADMM sweeps, and no estimation surrogate.  The model is past K2's and
+    K4's limits, so an iteration launches K1 and K3 (n = 45 + 5, m = 5)
+    and runs its contact solves as plain batched PyTorch."""
+    model = make_carrots(n_pieces=n_pieces, h=1.0)
+    idx_u = model.indices_u_into_x()
+    rng = np.random.RandomState(0)
+    q0 = {"gripper": np.array([-0.85, 0.22, 0.0, -0.05, -0.05])}
+    for k in range(n_pieces):
+        q0[f"carrot_{k}"] = np.array([rng.uniform(-0.6, 0.2), 0.05])
+    x0 = model.get_x_from_q_dict(q0)
+    xd_rows = []
+    for t in range(T + 1):
+        frac = t / max(T, 1)
+        xd = {"gripper": np.array([-0.85 + 1.25 * frac, 0.22, 0.0, -0.05,
+                                   -0.05])}
+        for k in range(n_pieces):
+            xd[f"carrot_{k}"] = np.array([0.4, 0.05])
+        xd_rows.append(model.get_x_from_q_dict(xd))
+    Q_dict = {"gripper": np.array([2.0, 0.5, 0.1, 0.1, 0.1])}
+    for k in range(n_pieces):
+        Q_dict[f"carrot_{k}"] = np.array([1.0, 0.1])
+    params = IrsMpcParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 10 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"gripper": np.full(5, 0.5)}),
+        x0=x0, xd_trj=np.stack(xd_rows),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        u_bounds_abs=np.array([-np.full(5, 0.15), np.full(5, 0.15)]),
+        bounds_trust_region=True, indices_u_into_x=idx_u,
+        unactuated_indices=np.arange(5, 5 + 2 * n_pieces),
+        gradient_mode="zero_order_B", decouple_AB=True,
+        smoothing=SmoothingConfig(
+            num_samples=num_samples, std_u=0.1, std_x=1e-3,
+            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
+        admm_iters=20, report_final_cost_with_Q=False)
+    return IrsMpc(model.system(), params, device=device), model
+
+
 def circle_pair_model(geom, quasistatic):
     """A small model for the circle-circle pair kind, which no bundled
     model within K4's limits has: a round pusher (y, z) and a free ball
@@ -380,15 +437,19 @@ def planar_hand_qps(B=2048, seed=0):
     return P.contiguous(), q, C, d
 
 
-def delta_u_problem(T=30, n=7, m=4, seed=11):
+def delta_u_problem(T=30, n=7, m=4, seed=11, spread=0.3):
     """A seeded Δu-augmented problem (n_aug = n + m, w = x[n:]), the
-    construction of ``tests/test_pallas.py::_delta_u_problem``."""
+    construction of ``tests/test_pallas.py::_delta_u_problem``; A is
+    I + ``spread`` times a normal draw.  Past n ~ 30 the default spread makes
+    the dynamics so unstable that float32 itself fixes the solution only to
+    ~1e-3 (the plain loop's error against float64), so the wide shapes take
+    near-identity dynamics (spread 0.03), as a quasistatic model's are."""
     rng = np.random.RandomState(seed)
 
     def f(a):
         return torch.tensor(a, dtype=torch.float32, device=DEVICE)
 
-    A = f(rng.randn(T, n, n) * 0.3 + np.eye(n))
+    A = f(rng.randn(T, n, n) * spread + np.eye(n))
     B = f(rng.randn(T, n, m) * 0.5)
     c = f(rng.randn(T, n) * 0.1)
     Q = f(np.diag(rng.rand(n) + 0.5))
@@ -689,6 +750,21 @@ def k4_row(shape, args, card, plain_reps=3):
                   + tensor_bytes((xs, us)))
 
 
+def admm_rows(name, k3_args, k3_kw, card):
+    """K3 on the trajectory QP a slice's first iteration hands it, and K1
+    on that problem's initial solve."""
+    prob, bounds = k3_args[:2]
+    Tp, n, m = prob.B.shape
+    kinds = "+".join(kd for kd in admm.KINDS
+                     if getattr(bounds, kd) is not None)
+    print(f"[K3] {name}: the knots' operands {cuda_admm.placement(Tp, n, m)}")
+    return [k3_row(f"{name} T={Tp} n={n} m={m}, {kinds} box, "
+                   f"{k3_kw['iters']} sweeps, a={k3_kw['over_relax']}",
+                   k3_args, k3_kw, card, plain_reps=3),
+            k1_row(f"{name} T={Tp} n={n} m={m} (N!=0), the ADMM's "
+                   f"initial solve", prob, card)]
+
+
 def slice_kernel_rows(name, solver_fn, T, S, card):
     """K2 (both calls), K3, K1 and K4 on what the first iteration of the
     slice ``name`` hands them."""
@@ -707,15 +783,7 @@ def slice_kernel_rows(name, solver_fn, T, S, card):
         B, n = args[1].shape
         rows.append(k2_row(f"{name} {B} QPs x {args[4]} it, n={n} "
                            f"m={args[3].shape[1]}", args[:4], args[4], card))
-    prob, bounds = k3_args[:2]
-    Tp, n, m = prob.B.shape
-    kinds = "+".join(kd for kd in admm.KINDS
-                     if getattr(bounds, kd) is not None)
-    rows.append(k3_row(f"{name} T={Tp} n={n} m={m}, {kinds} box, "
-                       f"{k3_kw['iters']} sweeps, a={k3_kw['over_relax']}",
-                       k3_args, k3_kw, card, plain_reps=3))
-    rows.append(k1_row(f"{name} T={Tp} n={n} m={m} (N!=0), the ADMM's "
-                       f"initial solve", prob, card))
+    rows += admm_rows(name, k3_args, k3_kw, card)
     model = k4_args[0]
     A, T4, _ = k4_args[6].shape
     rows.append(k4_row(f"{name} {A} lanes x T={T4}, nq={model.nq}, "
@@ -967,6 +1035,31 @@ def main():
                           over_relax=1.6)
         print(f"[K3] delta-u T=30 n=11 m=4, kinds {'+'.join(kinds)}: max "
               f"abs err {err:.3e}")
+    # The wide shapes and both placements of the knots' operands.
+    for n_p, m_w, T_w in ((34, 16, 5), (48, 16, 5), (48, 16, 12)):
+        prob_w, _ = delta_u_problem(T=T_w, n=n_p, m=m_w, seed=3, spread=0.03)
+        n_w = n_p + m_w
+        idx = torch.arange(n_p, n_w, device=DEVICE)
+        bounds = delta_u_bounds(("u", "du"), T_w, n_p, m_w)
+        z0, y0 = admm_initial(prob_w, bounds, n_p, idx)
+        rows.append(k3_row(
+            f"delta-u T={T_w} n={n_w} m={m_w}, u+du box, 8 sweeps, "
+            f"{cuda_admm.placement(T_w, n_w, m_w)}", (prob_w, bounds, z0, y0),
+            dict(n_phys=n_p, idx_w=idx, rho=1.0, iters=8, over_relax=1.6),
+            card))
+    prob_b = bench_problem()
+    Tb, n_b, m_b = prob_b.B.shape
+    bounds = admm.BoxBounds(**{kd: torch.stack(
+        [torch.full((rows_, dim), -h, device=DEVICE),
+         torch.full((rows_, dim), h, device=DEVICE)])
+        for kd, rows_, dim, h in (("x", Tb + 1, n_b, 1.0),
+                                  ("u", Tb, m_b, 0.3))})
+    z0, y0 = admm_initial(prob_b, bounds, n_b, None)
+    rows.append(k3_row(
+        f"bench T={Tb} n={n_b} m={m_b}, x+u box, 12 sweeps, "
+        f"{cuda_admm.placement(Tb, n_b, m_b)}", (prob_b, bounds, z0, y0),
+        dict(n_phys=n_b, idx_w=None, rho=1.0, iters=12, over_relax=1.6),
+        card, plain_reps=2))
 
     # -- Phase 7: the planar-hand slice on the card --------------------------
     per_it = {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1,
@@ -1038,6 +1131,24 @@ def main():
     solver.iterate(1, verbose=False)
     torch.cuda.reset_peak_memory_stats()
     profile_iteration(solver, 3, card)
+
+    # -- Phase 13: carrots: K3 and K1 at its shape, then its path -----------
+    k3_calls = []
+    solver, _ = carrots_solver(DEVICE)
+    with capture(cuda_admm, "solve_boxed_tvlqr_cuda", k3_calls):
+        solver.iterate(1, verbose=False)
+    torch.cuda.synchronize()
+    check(len(k3_calls) == 1,
+          f"carrots first iteration: {len(k3_calls)} ADMM calls")
+    rows += admm_rows("carrots", *k3_calls[0], card)
+    solver, _ = carrots_solver(DEVICE)
+    paths["carrots"], _ = drive_slice(
+        "carrots", solver, CARROTS_ITERATIONS,
+        {"cuda_riccati": 1, "cuda_admm": 1, "cuda_qp": 0, "cuda_rollout": 0},
+        card, CARROTS_T * CARROTS_S)
+    check_golden("carrots", solver.cost_lst[0], solver.cost_best,
+                 CARROTS_INITIAL, (1 + BOX_BEST_RTOL) * CARROTS_BEST,
+                 (1 - BOX_BEST_RTOL) * CARROTS_BEST)
 
     entries = []
     for kernel, name, source, replaces in (

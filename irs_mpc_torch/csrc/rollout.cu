@@ -14,7 +14,7 @@
 //         `iters` iterations, with the floors, caps and rescue of
 //         qp._pdip_solve's warm branch,
 //   lam = the solve's duals (non-finite -> 0), canonicalised per contact
-//         pair (mean of its two rows) if the model asks for it,
+//         (mean of its two rows) if the model asks for it,
 //   x  <- x + dq.
 //
 // The model arrives as a table built on the host (rollout.make_consts):
@@ -33,24 +33,48 @@
 // What bounds it on an H100: latency.  A lane is T x iters dependent
 // Newton steps on a system of at most 16 unknowns and 64 rows, far too
 // little work for an SM, and the lanes are independent.  The design is one
-// block per lane, the lane's whole state and QP in shared memory, threads
-// over contacts (four slots per pair), rows and H entries,
-// __syncthreads() between phases, and no return to the host between
-// knots.  Scalar reductions (mu, the step length, finiteness) are done by
-// one thread over at most 64 rows.  No fast-math: the divisions and the
-// 1e10-scaled eliminations are where f32 fails first.
+// warp per lane (a block of 32 threads), with no __syncthreads() at all:
+//   - each thread owns two rows (C row in shared memory at an odd stride,
+//     d, s, lam and the residuals in registers);
+//   - mu, the fraction-to-boundary step and the warm start's shift are
+//     butterfly reductions (__shfl_xor_sync), NaN-propagating like nmin;
+//   - the Newton tableau [diag(pdiag) + C'WC | rhs] is built with one
+//     column per thread, in registers, by one code path for every thread,
+//     and eliminated by the same Gauss-Jordan without pivoting as qp's
+//     solve_spd, unrolled (pivots and rows at compile-time positions), the
+//     pivot column broadcast by __shfl_sync;
+//   - the iterate dq (and its last finite value) is replicated in every
+//     thread, so the finiteness rescue needs no reduction;
+//   - the narrow phase maps threads over (pair, contact slot), looping past
+//     32 slots;
+//   - the lane's per-knot inputs (K, z_ref, u_ref, the bound rows) are
+//     staged into shared memory with cp.async in chunks of knots (one chunk
+//     at the main path's sizes), and the model's table and constants once.
+// The kernel is instantiated for every nq from 1 to 16, so that every
+// loop over the unknowns, and every shuffle, sits at a compile-time
+// position with no guard (a guard around a shuffle costs a convergence
+// barrier).  No fast-math: the divisions and the 1e10-scaled eliminations
+// are where f32 fails first; the 1e10 cap, the 1e-7 and 3e-7
+// floors, 0.995, the last-finite rescue of dq, non-finite lam -> 0 and the
+// per-contact canonicalisation are those of the plain version.
 //
 // Limits: nq <= 16, m <= 16, nz <= 32, at most 64 rows (32 contacts).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxNq = 16;
 constexpr int kMaxM = 16;
+constexpr int kMaxNz = 32;
 constexpr int kMaxRows = 64;
+constexpr int kMaxPairs = kMaxRows / 2;
+constexpr int kLdc = kMaxNq + 1;
+constexpr int kChunkFloats = 8192;   // 32 KB of staged knots
 constexpr int kMaxLinks = 4;
 constexpr int kMaxContacts = 4;   // per pair: a box's four corners
 // Table layout, as rollout.py: per side SIDE_INTS ints and SIDE_FLOATS
@@ -71,6 +95,11 @@ __device__ __forceinline__ float nmax(float a, float b) {
 }
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return nmin(nmax(v, lo), hi);
+}
+// An input bound made finite as rollout.bound_rows makes it: +-inf ->
+// +-1e9, and NaN -> side * 1e9 (no bound on that side).
+__device__ __forceinline__ float finite_bound(float v, float side) {
+  return isnan(v) ? side * 1e9f : fminf(fmaxf(v, -1e9f), 1e9f);
 }
 
 // World geometry of one side of a pair at configuration x.
@@ -292,6 +321,52 @@ __device__ void pair_contact(const Side& a, const Side& b, int c, float& phi,
   }
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_nmin(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = nmin(v, __shfl_xor_sync(kFull, v, off));
+  }
+  return v;
+}
+
+// Copy `count` 4-byte words from global memory into shared memory with
+// cp.async (4 bytes a copy: the knots' offsets are not 16-byte aligned).
+template <class E>
+__device__ __forceinline__ void stage(E* dst, const E* src, int count,
+                                      int lane) {
+  for (int e = lane; e < count; e += kThreads) {
+    __pipeline_memcpy_async(dst + e, src + e, 4);
+  }
+}
+
+// One knot-chunk of a lane's inputs in shared memory, `tc` knots of each.
+struct Chunk {
+  float *K, *zx, *zw, *ur, *lb, *ub, *rlb, *rub;
+};
+
+__host__ __device__ inline int knot_floats(int nq, int m, int nz) {
+  return m * nz + nq + 6 * m;
+}
+
+__device__ inline Chunk chunk_layout(float* base, int tc, int nq, int m,
+                                     int nz) {
+  Chunk c;
+  c.K = base;
+  c.zx = c.K + tc * m * nz;
+  c.zw = c.zx + tc * nq;
+  c.ur = c.zw + tc * m;
+  c.lb = c.ur + tc * m;
+  c.ub = c.lb + tc * m;
+  c.rlb = c.ub + tc * m;
+  c.rub = c.rlb + tc * m;
+  return c;
+}
+
+template <int NQ>
 __global__ void __launch_bounds__(kThreads)
 rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
                const float* __restrict__ zrx,   // (A, T, nq)
@@ -311,84 +386,120 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
                const float* __restrict__ pair_f,// (pairs, kPairFloats)
                float* __restrict__ xs,          // (A, T+1, nq)
                float* __restrict__ us,          // (A, T, m)
-               int T, int nq, int m, int nz, int pairs, int mr,
+               int T, int tc, int m, int nz, int pairs, int mr,
                int iters, int canon) {
-  __shared__ float x[kMaxNq], xw[kMaxNq], xk[kMaxNq], dq[kMaxNq];
-  __shared__ float b[kMaxNq], dx[kMaxNq];
-  __shared__ float up[kMaxM], u[kMaxM];
-  __shared__ float C[kMaxRows * kMaxNq], d[kMaxRows];
-  __shared__ float s[kMaxRows], lam[kMaxRows], rp[kMaxRows], rc[kMaxRows];
-  __shared__ float w[kMaxRows], ss[kMaxRows], tk[kMaxRows];
-  __shared__ float ds[kMaxRows], dl[kMaxRows], rs[kMaxRows], rl[kMaxRows];
-  __shared__ float tab[kMaxNq * (kMaxNq + 1)], rowk[kMaxNq + 1],
-      fac[kMaxNq];
-  __shared__ float scal[2];   // mu, then the step length alpha
-  __shared__ int flag;
+  __shared__ float x[kMaxNq], b[kMaxNq], u[kMaxM], up[kMaxM];
+  __shared__ float sp[kMaxNq], spq[kMaxNq], stau[kMaxNq];
+  __shared__ float sKUT[kMaxM * kMaxNq];
+  __shared__ float C[kMaxRows * kLdc], d[kMaxRows];
+  __shared__ float w[kMaxRows], tk[kMaxRows], lm[kMaxRows];
+  __shared__ int pi[kMaxPairs * kPairInts];
+  __shared__ float pf[kMaxPairs * kPairFloats];
+  extern __shared__ float4 chunk4[];
 
-  const int lane = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int w1 = nq + 1;
-  const float* zrx_l = zrx + (size_t)lane * T * nq;
-  const float* zrw_l = zrw ? zrw + (size_t)lane * T * m : nullptr;
-  const float* ur_l = ur + (size_t)lane * T * m;
-  float* xs_l = xs + (size_t)lane * (T + 1) * nq;
-  float* us_l = us + (size_t)lane * T * m;
+  const int ln = blockIdx.x;
+  const int lane = threadIdx.x;
+  constexpr int nq = NQ;        // the model's unknowns
+  constexpr int ldc = NQ | 1;
+  const bool aug = zrw != nullptr, rel = rlb != nullptr;
+  const Chunk ch = chunk_layout(reinterpret_cast<float*>(chunk4), tc, nq, m,
+                                nz);
+  const float* zrx_l = zrx + (size_t)ln * T * nq;
+  const float* zrw_l = aug ? zrw + (size_t)ln * T * m : nullptr;
+  const float* ur_l = ur + (size_t)ln * T * m;
+  float* xs_l = xs + (size_t)ln * (T + 1) * nq;
+  float* us_l = us + (size_t)ln * T * m;
 
-  for (int i = tid; i < nq; i += nt) {
+  // The model's table and constants, the start state.
+  stage(pi, pair_i, pairs * kPairInts, lane);
+  stage(pf, pair_f, pairs * kPairFloats, lane);
+  stage(sKUT, KUT, m * nq, lane);
+  __pipeline_commit();
+  for (int i = lane; i < nq; i += kThreads) {
+    sp[i] = pdiag[i];
+    spq[i] = pq[i];
+    stau[i] = tau[i];
     x[i] = x0[i];
-    dq[i] = 0.f;
     xs_l[i] = x0[i];
   }
-  for (int j = tid; j < m; j += nt) up[j] = up0[j];
-  for (int k = tid; k < mr; k += nt) lam[k] = 1.f;
-  __syncthreads();
+  for (int j = lane; j < m; j += kThreads) up[j] = up0[j];
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // Rows k0 = lane and k1 = lane + 32 of this thread; lam carried across
+  // knots, dq (the last finite iterate) in every thread.
+  const int k0 = lane, k1 = lane + 32;
+  const bool v0 = k0 < mr, v1 = k1 < mr;
+  float lam0 = 1.f, lam1 = 1.f;
+  float xk[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) xk[i] = 0.f;
 
   for (int t = 0; t < T; ++t) {
-    // -- feedback law and clips --
-    const float* Kt = K + (size_t)t * m * nz;
-    for (int j = tid; j < m; j += nt) {
-      float fb = 0.f;
-      for (int l = 0; l < nq; ++l) {
-        fb += (x[l] - zrx_l[(size_t)t * nq + l]) * Kt[j * nz + l];
+    const int c = t % tc;
+    if (c == 0) {
+      // Stage knots [t, t + tc) of this lane's inputs.
+      const int n = T - t < tc ? T - t : tc;
+      __syncwarp();
+      stage(ch.K, K + (size_t)t * m * nz, n * m * nz, lane);
+      stage(ch.zx, zrx_l + (size_t)t * nq, n * nq, lane);
+      if (aug) stage(ch.zw, zrw_l + (size_t)t * m, n * m, lane);
+      stage(ch.ur, ur_l + (size_t)t * m, n * m, lane);
+      stage(ch.lb, lb + (size_t)t * m, n * m, lane);
+      stage(ch.ub, ub + (size_t)t * m, n * m, lane);
+      if (rel) {
+        stage(ch.rlb, rlb + (size_t)t * m, n * m, lane);
+        stage(ch.rub, rub + (size_t)t * m, n * m, lane);
       }
-      if (zrw_l) {
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+    }
+
+    // -- feedback law and clips, one input per thread --
+    if (lane < m) {
+      const int j = lane;
+      const float* Kj = ch.K + (size_t)(c * m + j) * nz;
+      float fb = 0.f;
+      for (int l = 0; l < nq; ++l) fb += (x[l] - ch.zx[c * nq + l]) * Kj[l];
+      if (aug) {
         float fw = 0.f;
         for (int l = 0; l < m; ++l) {
-          fw += (up[l] - zrw_l[(size_t)t * m + l]) * Kt[j * nz + nq + l];
+          fw += (up[l] - ch.zw[c * m + l]) * Kj[nq + l];
         }
         fb += fw;
       }
-      float v = ur_l[(size_t)t * m + j] - fb;
-      if (rlb) {
-        v = clip(v, up[j] + rlb[(size_t)t * m + j],
-                 up[j] + rub[(size_t)t * m + j]);
+      float v = ch.ur[c * m + j] - fb;
+      if (rel) {
+        v = clip(v, up[j] + finite_bound(ch.rlb[c * m + j], -1.f),
+                 up[j] + finite_bound(ch.rub[c * m + j], 1.f));
       }
-      u[j] = clip(v, lb[(size_t)t * m + j], ub[(size_t)t * m + j]);
+      u[j] = clip(v, finite_bound(ch.lb[c * m + j], -1.f),
+                  finite_bound(ch.ub[c * m + j], 1.f));
     }
-    __syncthreads();
+    __syncwarp();
 
     // -- assembly: b, and two Anitescu rows per contact --
-    for (int i = tid; i < nq; i += nt) {
+    for (int i = lane; i < nq; i += kThreads) {
       float ku = 0.f;
-      for (int j = 0; j < m; ++j) ku += u[j] * KUT[j * nq + i];
-      b[i] = pq[i] * x[i] - ku - tau[i];
+      for (int j = 0; j < m; ++j) ku += u[j] * sKUT[j * nq + i];
+      b[i] = spq[i] * x[i] - ku - stau[i];
     }
-    for (int e = tid; e < pairs * kMaxContacts; e += nt) {
-      const int pr = e / kMaxContacts, c = e % kMaxContacts;
-      const int* ip = pair_i + (size_t)pr * kPairInts;
-      if (c >= ip[1]) continue;
-      const int row = ip[0] + 2 * c;
+    for (int e = lane; e < pairs * kMaxContacts; e += kThreads) {
+      const int pr = e / kMaxContacts, cc = e % kMaxContacts;
+      const int* ip = pi + pr * kPairInts;
+      if (cc >= ip[1]) continue;
+      const int row = ip[0] + 2 * cc;
       const int* ia = ip + 2;
       const int* ib = ia + kSideInts;
-      const float* fa = pair_f + (size_t)pr * kPairFloats + 1;
+      const float* fa = pf + pr * kPairFloats + 1;
       const float* fb = fa + kSideFloats;
-      const float mu = pair_f[(size_t)pr * kPairFloats];
+      const float mu = pf[pr * kPairFloats];
       Side ga, gb;
       side_geometry(ia, fa, x, ga);
       side_geometry(ib, fb, x, gb);
       float phi, py, pz, ny, nz_;
-      pair_contact(ga, gb, c, phi, py, pz, ny, nz_);
+      pair_contact(ga, gb, cc, phi, py, pz, ny, nz_);
       for (int i = 0; i < nq; ++i) {
         float jay, jaz, jby, jbz;
         side_jacobian(ia, ga, py, pz, i, jay, jaz);
@@ -396,169 +507,179 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
         const float ry = jby - jay, rz = jbz - jaz;
         const float jn = ny * ry + nz_ * rz;
         const float jt = (-nz_) * ry + ny * rz;
-        C[row * nq + i] = -(jn + mu * jt);
-        C[(row + 1) * nq + i] = -(jn - mu * jt);
+        C[row * ldc + i] = -(jn + mu * jt);
+        C[(row + 1) * ldc + i] = -(jn - mu * jt);
       }
       d[row] = phi;
       d[row + 1] = phi;
     }
-    if (tid == 0) {
-      int ok = 1;
-      for (int i = 0; i < nq; ++i) ok = ok && isfinite(dq[i]);
-      flag = ok;
-    }
-    __syncthreads();
+    __syncwarp();
 
     // -- warm start from the previous knot's (dq, lam) --
-    for (int i = tid; i < nq; i += nt) {
-      xw[i] = flag ? dq[i] : 0.f;
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) ok = ok && isfinite(xk[i]);
+    float xw[NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      xw[i] = ok ? xk[i] : 0.f;
       xk[i] = xw[i];
     }
-    __syncthreads();
-    for (int k = tid; k < mr; k += nt) {
-      float acc = 0.f;
-      for (int j = 0; j < nq; ++j) acc += C[k * nq + j] * xw[j];
-      s[k] = d[k] - acc;
+    const float* C0 = C + (v0 ? k0 : 0) * ldc;
+    const float* C1 = C + (v1 ? k1 : 0) * ldc;
+    const float d0 = v0 ? d[k0] : 0.f, d1 = v1 ? d[k1] : 0.f;
+    float s0, s1;
+    {
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        a0 += C0[i] * xw[i];
+        a1 += C1[i] * xw[i];
+      }
+      s0 = d0 - a0;
+      s1 = d1 - a1;
+      const float mn = warp_nmin(nmin(v0 ? s0 : INFINITY, v1 ? s1 : INFINITY));
+      const float shift = nmax(0.f, -mn) + 1e-2f;
+      s0 += shift;
+      s1 += shift;
+      lam0 = clip(isfinite(lam0) ? lam0 : 1.f, 1e-2f, 1e6f);
+      lam1 = clip(isfinite(lam1) ? lam1 : 1.f, 1e-2f, 1e6f);
     }
-    __syncthreads();
-    if (tid == 0) {
-      float mn = s[0];
-      for (int k = 1; k < mr; ++k) mn = nmin(mn, s[k]);
-      scal[0] = nmax(0.f, -mn) + 1e-2f;
-    }
-    __syncthreads();
-    for (int k = tid; k < mr; k += nt) {
-      s[k] += scal[0];
-      const float l = isfinite(lam[k]) ? lam[k] : 1.f;
-      lam[k] = clip(l, 1e-2f, 1e6f);
-    }
-    __syncthreads();
 
     for (int it = 0; it < iters; ++it) {
-      if (tid == 0) {
-        float acc = 0.f;
-        for (int k = 0; k < mr; ++k) acc += s[k] * lam[k];
-        scal[0] = nmax(acc / (float)mr, 3e-7f);
+      const float acc = warp_sum((v0 ? s0 * lam0 : 0.f) +
+                                 (v1 ? s1 * lam1 : 0.f));
+      const float mu = nmax(acc / (float)mr, 3e-7f);
+      float cx0 = 0.f, cx1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        cx0 += C0[i] * xw[i];
+        cx1 += C1[i] * xw[i];
       }
-      __syncthreads();
-      const float mu = scal[0];
-      for (int k = tid; k < mr; k += nt) {
-        float cx = 0.f;
-        for (int j = 0; j < nq; ++j) cx += C[k * nq + j] * xw[j];
-        rp[k] = cx + s[k] - d[k];
-        rc[k] = lam[k] * s[k] - 0.25f * mu;
-        ss[k] = nmax(s[k], 1e-7f);
-        w[k] = nmin(lam[k] / ss[k], 1e10f);
-        tk[k] = w[k] * rp[k] - rc[k] / ss[k];
+      const float rp0 = cx0 + s0 - d0, rp1 = cx1 + s1 - d1;
+      const float rc0 = lam0 * s0 - 0.25f * mu, rc1 = lam1 * s1 - 0.25f * mu;
+      const float ss0 = nmax(s0, 1e-7f), ss1 = nmax(s1, 1e-7f);
+      const float w0 = nmin(lam0 / ss0, 1e10f), w1 = nmin(lam1 / ss1, 1e10f);
+      __syncwarp();   // the previous step's tableau has read w, tk, lm
+      if (v0) {
+        w[k0] = w0;
+        tk[k0] = w0 * rp0 - rc0 / ss0;
+        lm[k0] = lam0;
       }
-      __syncthreads();
-      for (int e = tid; e < nq * w1; e += nt) {
-        const int i = e / w1, j = e % w1;
-        if (j < nq) {
-          float acc = 0.f;
-          for (int k = 0; k < mr; ++k) {
-            acc += w[k] * C[k * nq + i] * C[k * nq + j];
-          }
-          tab[e] = (i == j ? pdiag[i] + 1e-8f : 0.f) + acc;
-        } else {
-          float rd = pdiag[i] * xw[i] + b[i];
-          float cl = 0.f, ct = 0.f;
-          for (int k = 0; k < mr; ++k) {
-            cl += C[k * nq + i] * lam[k];
-            ct += C[k * nq + i] * tk[k];
-          }
-          rd += cl;
-          tab[e] = -(rd + ct);
+      if (v1) {
+        w[k1] = w1;
+        tk[k1] = w1 * rp1 - rc1 / ss1;
+        lm[k1] = lam1;
+      }
+      __syncwarp();
+      // The tableau [diag(pdiag) + C'WC | rhs], column `lane` in col, by
+      // one code path for every thread: thread j < nq sums w_k C_kj C_k,
+      // thread nq sums lam_k C_k and tk_k C_k (kept apart, as the plain
+      // version adds them), the others sum zeros.
+      float h1[NQ], h2[NQ];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        h1[i] = 0.f;
+        h2[i] = 0.f;
+      }
+      for (int k = 0; k < mr; ++k) {
+        const float* Ck = C + k * ldc;
+        const float cj = Ck[lane < nq ? lane : 0];
+        const float f1 = lane < nq ? w[k] * cj : (lane == nq ? lm[k] : 0.f);
+        const float f2 = lane == nq ? tk[k] : 0.f;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          h1[i] += f1 * Ck[i];
+          h2[i] += f2 * Ck[i];
         }
       }
-      __syncthreads();
-      // Gauss-Jordan, no pivoting (as K1).
-      for (int kk = 0; kk < nq; ++kk) {
-        for (int e = tid; e < w1 + nq; e += nt) {
-          if (e < w1) {
-            rowk[e] = tab[kk * w1 + e] / tab[kk * w1 + kk];
-          } else {
-            fac[e - w1] = tab[(e - w1) * w1 + kk];
-          }
+      float col[NQ];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const float hv = (i == lane ? sp[i] + 1e-8f : 0.f) + h1[i];
+        float rd = sp[i] * xw[i] + b[i];
+        rd += h1[i];
+        col[i] = lane == nq ? -(rd + h2[i]) : hv;
+      }
+      // Gauss-Jordan, no pivoting, unrolled: pivot kk scales row kk of
+      // every column and takes its multiple off the other rows; thread kk
+      // holds the pivot column.
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        const float rk = col[kk] / __shfl_sync(kFull, col[kk], kk);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          if (i != kk) col[i] = col[i] - __shfl_sync(kFull, col[i], kk) * rk;
         }
-        __syncthreads();
-        for (int e = tid; e < nq * w1; e += nt) {
-          const int i = e / w1, j = e % w1;
-          tab[e] = (i == kk) ? rowk[j] : tab[e] - fac[i] * rowk[j];
-        }
-        __syncthreads();
+        col[kk] = rk;
       }
-      for (int i = tid; i < nq; i += nt) dx[i] = tab[i * w1 + nq];
-      __syncthreads();
-      for (int k = tid; k < mr; k += nt) {
-        float cdx = 0.f;
-        for (int j = 0; j < nq; ++j) cdx += C[k * nq + j] * dx[j];
-        ds[k] = -rp[k] - cdx;
-        dl[k] = (-rc[k] - lam[k] * ds[k]) / ss[k];
-        rs[k] = ds[k] < 0.f ? -s[k] / ds[k] : INFINITY;
-        rl[k] = dl[k] < 0.f ? -lam[k] / dl[k] : INFINITY;
+      // dx, the last column, into every thread.
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) col[i] = __shfl_sync(kFull, col[i], nq);
+      float cd0 = 0.f, cd1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        cd0 += C0[i] * col[i];
+        cd1 += C1[i] * col[i];
       }
-      __syncthreads();
-      if (tid == 0) {
-        float ms = rs[0], ml = rl[0];
-        for (int k = 1; k < mr; ++k) {
-          ms = nmin(ms, rs[k]);
-          ml = nmin(ml, rl[k]);
-        }
-        scal[1] = nmin(1.f, 0.995f * nmin(ms, ml));
+      const float ds0 = -rp0 - cd0, ds1 = -rp1 - cd1;
+      const float dl0 = (-rc0 - lam0 * ds0) / ss0;
+      const float dl1 = (-rc1 - lam1 * ds1) / ss1;
+      const float rs0 = ds0 < 0.f ? -s0 / ds0 : INFINITY;
+      const float rl0 = dl0 < 0.f ? -lam0 / dl0 : INFINITY;
+      const float rs1 = ds1 < 0.f ? -s1 / ds1 : INFINITY;
+      const float rl1 = dl1 < 0.f ? -lam1 / dl1 : INFINITY;
+      const float mstep = warp_nmin(nmin(v0 ? nmin(rs0, rl0) : INFINITY,
+                                         v1 ? nmin(rs1, rl1) : INFINITY));
+      const float alpha = nmin(1.f, 0.995f * mstep);
+      bool fin = true;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        xw[i] = xw[i] + alpha * col[i];
+        fin = fin && isfinite(xw[i]);
       }
-      __syncthreads();
-      const float alpha = scal[1];
-      for (int i = tid; i < nq; i += nt) xw[i] = xw[i] + alpha * dx[i];
-      for (int k = tid; k < mr; k += nt) {
-        s[k] = s[k] + alpha * ds[k];
-        lam[k] = lam[k] + alpha * dl[k];
+      s0 = s0 + alpha * ds0;
+      s1 = s1 + alpha * ds1;
+      lam0 = lam0 + alpha * dl0;
+      lam1 = lam1 + alpha * dl1;
+      if (fin) {
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) xk[i] = xw[i];
       }
-      __syncthreads();
-      if (tid == 0) {
-        int ok = 1;
-        for (int i = 0; i < nq; ++i) ok = ok && isfinite(xw[i]);
-        flag = ok;
-      }
-      __syncthreads();
-      for (int i = tid; i < nq; i += nt) {
-        if (flag) xk[i] = xw[i];
-      }
-      __syncthreads();
     }
 
     // -- carry: dq, cleaned (and canonicalised) duals, next state --
-    for (int k = tid; k < mr; k += nt) {
-      if (!isfinite(lam[k])) lam[k] = 0.f;
-    }
-    __syncthreads();
+    if (!isfinite(lam0)) lam0 = 0.f;
+    if (!isfinite(lam1)) lam1 = 0.f;
     if (canon) {
-      // Per contact: rows 2c and 2c+1 (QuasistaticModel.canon_duals).
-      for (int c = tid; c < mr / 2; c += nt) {
-        const float mean = (lam[2 * c] + lam[2 * c + 1]) / 2.f;
-        lam[2 * c] = mean;
-        lam[2 * c + 1] = mean;
+      // Per contact: rows 2c and 2c+1, neighbouring threads
+      // (QuasistaticModel.canon_duals).
+      lam0 = (lam0 + __shfl_xor_sync(kFull, lam0, 1)) / 2.f;
+      lam1 = (lam1 + __shfl_xor_sync(kFull, lam1, 1)) / 2.f;
+    }
+    __syncwarp();   // every thread is done with x, u and the rows
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i == lane) {
+        const float xn = x[i] + xk[i];
+        x[i] = xn;
+        xs_l[(size_t)(t + 1) * nq + i] = xn;
       }
     }
-    for (int i = tid; i < nq; i += nt) {
-      dq[i] = xk[i];
-      x[i] = x[i] + xk[i];
-      xs_l[(size_t)(t + 1) * nq + i] = x[i];
+    if (lane < m) {
+      us_l[(size_t)t * m + lane] = u[lane];
+      up[lane] = u[lane];
     }
-    for (int j = tid; j < m; j += nt) {
-      us_l[(size_t)t * m + j] = u[j];
-      up[j] = u[j];
-    }
-    __syncthreads();
+    __syncwarp();
   }
 }
 
 }  // namespace
 
-// Launches one block per lane on `stream`; zrw null without the
-// prev-input block, rlb/rub null without relative bounds; `rows` is the
-// table's row count, two for each contact.  Returns
-// cudaGetLastError() as an int (0 on success).
+// Launches one warp per lane on `stream`; zrw null without the prev-input
+// block, rlb/rub null without relative bounds; `rows` is the table's row
+// count, two for each contact.  Returns cudaGetLastError() as an int (0 on
+// success).
 extern "C" int rollout_chain_f32(
     const float* K, const float* zrx, const float* zrw, const float* ur,
     const float* lb, const float* ub, const float* rlb, const float* rub,
@@ -568,15 +689,28 @@ extern "C" int rollout_chain_f32(
     int m, int nz, int pairs, int rows, int iters, int canon,
     void* stream) {
   if (lanes < 1 || T < 1 || nq < 1 || nq > kMaxNq || m < 1 || m > kMaxM ||
-      pairs < 1 || rows < 2 * pairs || rows > kMaxRows || rows % 2 ||
-      iters < 0 ||
+      nz > kMaxNz || pairs < 1 || rows < 2 * pairs || rows > kMaxRows ||
+      rows % 2 || iters < 0 ||
       (nz != nq && nz != nq + m) || (zrw == nullptr) != (nz == nq) ||
       (rlb == nullptr) != (rub == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  rollout_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
-      K, zrx, zrw, ur, lb, ub, rlb, rub, x0, up0, pdiag, pq, KUT, tau,
-      pair_i, pair_f, xs, us, T, nq, m, nz, pairs, rows, iters, canon);
+  const int per = knot_floats(nq, m, nz);
+  const int fit = kChunkFloats / per > 1 ? kChunkFloats / per : 1;
+  const int tc = T < fit ? T : fit;
+  const size_t smem = (size_t)tc * per * sizeof(float);
+  switch (nq) {
+#define K4_CASE(Q)                                                          \
+    case Q:                                                                 \
+      rollout_kernel<Q><<<lanes, kThreads, smem, (cudaStream_t)stream>>>(   \
+          K, zrx, zrw, ur, lb, ub, rlb, rub, x0, up0, pdiag, pq, KUT, tau,  \
+          pair_i, pair_f, xs, us, T, tc, m, nz, pairs, rows, iters, canon); \
+      break;
+    K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4) K4_CASE(5) K4_CASE(6)
+    K4_CASE(7) K4_CASE(8) K4_CASE(9) K4_CASE(10) K4_CASE(11) K4_CASE(12)
+    K4_CASE(13) K4_CASE(14) K4_CASE(15) K4_CASE(16)
+#undef K4_CASE
+  }
   return (int)cudaGetLastError();
 }
 

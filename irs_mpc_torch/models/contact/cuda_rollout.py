@@ -2,11 +2,11 @@
 
 ``linesearch_rollout_cuda`` flattens the model into the pair table of
 ``rollout.make_consts`` (cached per model and device; each pair's first
-row and contact count included), turns the bound rows
-finite as ``rollout.bound_rows`` does, and launches ``csrc/rollout.cu``,
-one block per line-search lane, on PyTorch's current stream, or raises;
-there is no fallback.  It is the contact model's ``ls_rollout_fn``, which
-the solver calls for CUDA tensors only.  The plain version is
+row and contact count included) and launches ``csrc/rollout.cu``, one warp
+per line-search lane, on PyTorch's current stream, or raises; there is no
+fallback.  The kernel makes the input bounds finite as
+``rollout.bound_rows`` does.  It is the contact model's ``ls_rollout_fn``,
+which the solver calls for CUDA tensors only.  The plain version is
 ``rollout.linesearch_rollout_plain``.
 """
 from __future__ import annotations
@@ -77,17 +77,11 @@ def linesearch_rollout_cuda(model, x0, u_prev0, K, z_ref_x, z_ref_w, u_ref,
     device = check_tensors("the rollout kernel", shapes, contiguous=False)
 
     c = _consts(model, device)
-
-    def rows(bv, side):
-        return rollout.bound_rows(bv, side, T, m, device)
-
-    ins = [K.contiguous(), z_ref_x.contiguous(),
-           None if z_ref_w is None else z_ref_w.contiguous(),
-           u_ref.contiguous(), rows(lb, -1.0), rows(ub, 1.0),
-           None if rel_lb is None else rows(rel_lb, -1.0),
-           None if rel_ub is None else rows(rel_ub, 1.0),
-           x0.contiguous(), u_prev0.contiguous(), c["pdiag"], c["pq"],
-           c["KUT"], c["tau"], c["pair_i"], c["pair_f"]]
+    ins = [None if a is None else a.contiguous()
+           for a in (K, z_ref_x, z_ref_w, u_ref, lb, ub, rel_lb, rel_ub, x0,
+                     u_prev0)]
+    ins += [c["pdiag"], c["pq"], c["KUT"], c["tau"], c["pair_i"],
+            c["pair_f"]]
     xs = torch.empty((A, T + 1, nq), dtype=torch.float32, device=device)
     us = torch.empty((A, T, m), dtype=torch.float32, device=device)
     ptrs = [0 if a is None else a.data_ptr() for a in ins + [xs, us]]

@@ -135,11 +135,13 @@ def on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
-def check_tensors(what: str, tensors: dict, contiguous: bool = True):
+def check_tensors(what: str, tensors: dict, contiguous: bool = True,
+                  device_type: str = "cuda"):
     """Raise ValueError unless every entry ``name: (tensor, shape)`` of
-    ``tensors`` is an f32 CUDA tensor of that shape on one device (and
-    contiguous, where the kernel reads it as it lies); returns the
-    device."""
+    ``tensors`` is an f32 tensor of that shape on one device of
+    ``device_type`` (and contiguous, where the kernel reads it as it lies);
+    returns the device.  Only the CPU emulation of the kernels
+    (``tools.cpu_shim``) asks for "cpu"."""
     device = None
     for name, (a, shape) in tensors.items():
         if a.dtype != torch.float32:
@@ -154,8 +156,9 @@ def check_tensors(what: str, tensors: dict, contiguous: bool = True):
         if a.device != device:
             raise ValueError(f"{what}: {name} is on {a.device}, the others "
                              f"on {device}")
-    if device is None or device.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {device}")
+    if device is None or device.type != device_type:
+        raise ValueError(f"{what} needs {device_type.upper()} tensors, got "
+                         f"{device}")
     return device
 
 

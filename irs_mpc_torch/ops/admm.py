@@ -75,10 +75,22 @@ def _w_selector(idx_w, n, m, like):
 def _penalized_problem(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
                        z: _SVals, y: _SVals, rho: float, n_phys: int,
                        idx_w: Optional[Tensor]):
-    """The problem with the ADMM quadratic penalties added to its stage
-    cost.  Penalties on x and dx act on the first ``n_phys`` components of
-    a possibly augmented state; ``idx_w`` gives the prev-input block for
-    the du penalty."""
+    """The problem with the ADMM penalties added to its stage cost.
+    Penalties on x and dx act on the first ``n_phys`` components of a
+    possibly augmented state; ``idx_w`` gives the prev-input block for the
+    du penalty."""
+    T, n, m = prob.B.shape
+    Q, R, N, Qf = _penalized_quadratics(prob, bounds, rho, n_phys, idx_w)
+    q, r, qf = _penalized_linear_terms(prob, bounds, z, y, rho, n_phys,
+                                       idx_w)
+    return prob._replace(Q=Q.expand(T, n, n), R=R.expand(T, m, m),
+                         N=N.expand(T, n, m), q=q, r=r, Qf=Qf, qf=qf)
+
+
+def _penalized_quadratics(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
+                          rho: float, n_phys: int, idx_w: Optional[Tensor]):
+    """(Q, R, N, Qf) of ``_penalized_problem``: the sweep-invariant part,
+    which z and y do not enter."""
     T, n, m = prob.B.shape
     Q, R, N, Qf = prob.Q, prob.R, prob.N, prob.Qf
     eye_n = torch.eye(n, dtype=prob.A.dtype, device=prob.A.device)
@@ -102,10 +114,7 @@ def _penalized_problem(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
         Q = Q + rho * (W.T @ W)
         R = R + rho * eye_m
         N = N - rho * W.T
-    q, r, qf = _penalized_linear_terms(prob, bounds, z, y, rho, n_phys,
-                                       idx_w)
-    return prob._replace(Q=Q.expand(T, n, n), R=R.expand(T, m, m),
-                         N=N.expand(T, n, m), q=q, r=r, Qf=Qf, qf=qf)
+    return Q, R, N, Qf
 
 
 def _penalized_linear_terms(prob: lqr_ops.LqrProblem, bounds: BoxBounds,

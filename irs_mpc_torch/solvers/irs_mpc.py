@@ -124,13 +124,19 @@ class IrsMpc:
     """Construct with (system, params, device), then ``iterate(n) ->
     (x_trj, u_trj, cost)``; history in ``x_trj_lst``/``u_trj_lst``/
     ``cost_lst`` and best-so-far in ``*_best``.  Trajectories stay tensors
-    on ``device``."""
+    on ``device``: the card by default, where the kernels run; "cpu" runs
+    the plain PyTorch versions.  Without a CUDA device the default
+    raises."""
 
     def __init__(self, system: System, params: IrsMpcParams,
-                 device="cpu"):
+                 device="cuda"):
         self.system = system
         self.params = params
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"IrsMpc: device {device!r} but no CUDA device is "
+                f"available; pass device='cpu' for the plain PyTorch path")
         self._validate()
 
         p, dev = params, self.device

@@ -10,8 +10,9 @@ through both packages.
 * ``solve_boxed_tvlqr`` on CPU tensors against the JAX package's scan
   backend over the five bound-kind combinations of the JAX package's
   whole-loop ADMM check, plus the planar-hand shape (T=30, n=7 + 4, u box,
-  12 over-relaxed sweeps): x, u, K at rtol/atol 1e-3 and the residuals at
-  rtol 1e-2, the tolerances of that check.  No kernel is launched.
+  12 over-relaxed sweeps) and the carrots shape (T=10, n=45 + 5, m=5, u
+  box, 20 sweeps): x, u, K at rtol/atol 1e-3 and the residuals at rtol
+  1e-2, the tolerances of that check.  No kernel is launched.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +28,13 @@ from irs_mpc_torch.ops import cuda_admm, cuda_riccati  # noqa: E402
 from irs_mpc_torch.ops import lqr as tlqr  # noqa: E402
 
 
-def _arrays(T, n, m, seed):
+def _arrays(T, n, m, seed, spread=0.3):
     """(A, B, c, Q, Qd, R, x0, xd) as float32 numpy, the construction of
-    ``tests/test_pallas.py::_problem`` / ``_delta_u_problem``."""
+    ``tests/test_pallas.py::_problem`` / ``_delta_u_problem``, with A = I +
+    ``spread`` times a normal draw."""
     rng = np.random.RandomState(seed)
     f = lambda a: np.asarray(a, np.float32)  # noqa: E731
-    A = f(rng.randn(T, n, n) * 0.3 + np.eye(n))
+    A = f(rng.randn(T, n, n) * spread + np.eye(n))
     B = f(rng.randn(T, n, m) * 0.5)
     c = f(rng.randn(T, n) * 0.1)
     Q = f(np.diag(rng.rand(n) + 0.5))
@@ -42,9 +44,9 @@ def _arrays(T, n, m, seed):
     return A, B, c, Q, Q * 3, R, x0, xd
 
 
-def _problems(T, n, m, seed, delta_u):
+def _problems(T, n, m, seed, delta_u, spread=0.3):
     """The same problem as (JAX, torch) ``LqrProblem``s, and n_phys."""
-    arrays = _arrays(T, n, m, seed)
+    arrays = _arrays(T, n, m, seed, spread)
     if delta_u:
         idx = np.arange(m)
         return (jlqr.build_delta_u_problem(*map(jnp.asarray, arrays),
@@ -91,9 +93,13 @@ def test_factorize_and_linear_match_jax(delta_u):
                                    rtol=1e-6, atol=1e-6, err_msg=name)
 
 
-# (kinds, T, n, m, seed, Δu problem, rho, sweeps): the five combinations of
-# the JAX package's whole-loop check, the planar-hand trajectory QP's shape
-# and settings, and no sweep at all (the unconstrained solution).
+# (kinds, T, n, m, seed, Δu problem, rho, sweeps[, spread of A]): the five
+# combinations of the JAX package's whole-loop check, the planar-hand and
+# carrots trajectory QPs' shapes and settings, and no sweep at all (the
+# unconstrained solution).  At carrots' width (n = 45 + 5) the default
+# spread of A makes the dynamics so unstable that float32 fixes the
+# solution only to ~4e-3 in either package, so that case takes
+# near-identity dynamics, as a quasistatic model's are.
 CASES = {
     "x": (("x",), 5, 4, 2, 13, False, 5.0, 4),
     "dx": (("dx",), 5, 4, 2, 13, False, 5.0, 4),
@@ -101,14 +107,15 @@ CASES = {
     "du": (("du",), 5, 4, 2, 11, True, 5.0, 4),
     "u+du": (("u", "du"), 5, 4, 2, 11, True, 5.0, 4),
     "planar_hand_shape": (("u",), 30, 7, 4, 11, True, 1.0, 12),
+    "carrots_shape": (("u",), 10, 45, 5, 3, True, 1.0, 20, 0.03),
     "no_sweep": (("u",), 5, 4, 2, 13, False, 5.0, 0),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_boxed_admm_matches_jax(case):
-    kinds, T, n, m, seed, delta_u, rho, iters = CASES[case]
-    jprob, tprob, n_phys = _problems(T, n, m, seed, delta_u)
+    kinds, T, n, m, seed, delta_u, rho, iters, *spread = CASES[case]
+    jprob, tprob, n_phys = _problems(T, n, m, seed, delta_u, *spread)
     n_aug = tprob.B.shape[1]
     b = _bounds(kinds, T, n_phys, m)
     kw = dict(n_phys=n_phys, rho=rho, iters=iters, over_relax=1.6)

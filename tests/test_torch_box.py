@@ -23,8 +23,8 @@ the port with ``convert``; ``chip_smoke.py`` builds the same ones.
   plan, so the iteration is held at atol 1e-2 on the accepted trajectories
   (measured 5.1e-3) and rtol 5e-3 on the cost channels (measured 1.9e-3),
   not at the planar-hand check's 1e-4.
-* ``chip_smoke``'s box solvers are the JAX package's examples, carried
-  across: the same model, parameters and smoothing schedule.
+* ``chip_smoke``'s box and carrots solvers are the JAX package's examples,
+  carried across: the same model, parameters and smoothing schedule.
 
 The goldens are in ``tests/test_torch_box_golden.py``.
 """
@@ -155,7 +155,7 @@ def test_injected_box_pushing_iteration_matches_jax():
     tp = convert.params_from_jax(
         p, decay=lambda it: 0.3 ** it / 0.3,
         estimation_system=tm.estimation_surrogate())
-    ts = tmpc.IrsMpc(tm.system(), tp)
+    ts = tmpc.IrsMpc(tm.system(), tp, device="cpu")
     assert ts.system.ls_rollout_fn is not None
     assert abs(ts.cost - js.cost) <= 1e-5 * js.cost
     before = _launches()
@@ -169,12 +169,16 @@ def test_injected_box_pushing_iteration_matches_jax():
     assert float(step.cvec[0]) < ts.cost
 
 
-@pytest.mark.parametrize("name", ["box_pushing", "box_pivoting"])
+@pytest.mark.parametrize("name", ["box_pushing", "box_pivoting", "carrots"])
 def test_carried_example_gives_the_smoke_configuration(name):
-    """``chip_smoke``'s solver is the JAX example's, carried across."""
-    js, jm = importlib.import_module(name).build_solver(num_samples=4, T=6)
-    smoke, smoke_model = getattr(chip_smoke, f"{name}_solver")(
-        "cpu", T=6, num_samples=4)
+    """``chip_smoke``'s solver is the JAX example's, carried across (carrots
+    with 3 pieces: the configuration is built piece by piece, and the JAX
+    package compiles its 20-piece rollout for most of a minute)."""
+    kw = dict(num_samples=4, T=6)
+    if name == "carrots":
+        kw["n_pieces"] = 3
+    js, jm = importlib.import_module(name).build_solver(**kw)
+    smoke, smoke_model = getattr(chip_smoke, f"{name}_solver")("cpu", **kw)
     assert convert.model_from_jax(jm) == smoke_model
     for f in dataclasses.fields(smoke.params):
         if f.name in ("smoothing", "estimation_system"):

@@ -4,6 +4,9 @@ pushing and box pivoting, with the port's own random stream, on the CPU
 12% after 8 descents, without a kernel launch.  The CPU runs the same warm
 scan chain as the JAX goldens; the configurations are ``chip_smoke``'s,
 which ``tests/test_torch_box.py`` holds to the JAX package's examples.
+Carrots' initial cost, a deterministic rollout of its 45-dof pile, is held
+to its golden the same way; its descents run on the card
+(``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -37,3 +40,11 @@ def test_box_golden_on_cpu(name, initial, best):
     np.testing.assert_allclose(solver.cost_lst[0], initial, rtol=1e-3)
     assert abs(solver.cost_best - best) <= chip_smoke.BOX_BEST_RTOL * best
     assert all(t.device.type == "cpu" for t in (solver.x_trj, solver.u_trj))
+
+
+def test_carrots_initial_cost_on_cpu():
+    solver, model = chip_smoke.carrots_solver("cpu")
+    assert not trollout.supports_model(model)    # nq = 45: no K4
+    assert solver.system.ls_rollout_fn is None
+    np.testing.assert_allclose(solver.cost_lst[0], chip_smoke.CARROTS_INITIAL,
+                               rtol=1e-3)

@@ -56,7 +56,8 @@ def test_injected_iteration_matches_jax():
         js.x_trj, js.u_trj, js.key, jnp.asarray(js.iter, jnp.float32))
     jcvec = np.asarray(jcvec)
 
-    ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05), convert.params_from_jax(jp))
+    ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05), convert.params_from_jax(jp),
+                     device="cpu")
     convert.state_from_jax(js, ts)
     assert ts.iter == 2 and ts.cost == js.cost and len(ts.cost_lst) == 2
     np.testing.assert_array_equal(ts.x_trj.numpy(), np.asarray(js.x_trj))
@@ -78,7 +79,8 @@ def test_injected_iteration_matches_jax():
 def test_pendulum_converges_to_reference(mode):
     """The goldens of tests/test_irs_mpc.py with the port's own stream:
     initial 1856.1541, cost and best <= 360 after 8 descents."""
-    s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, mode))
+    s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, mode),
+                    device="cpu")
     assert abs(s.cost - 1856.1541) < 0.01
     before = cuda_riccati.LAUNCHES
     s.iterate(8, verbose=False)
@@ -94,7 +96,7 @@ def test_delta_u_exact_curve_matches_jax():
     jp = _params(jmpc, "exact", T=30, **kw)
     tp = _params(tmpc, "exact", T=30, **kw)
     js = jmpc.IrsMpc(jmpc.make_pendulum(0.05), jp)
-    ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05), tp)
+    ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05), tp, device="cpu")
     js.iterate(4, verbose=False)
     ts.iterate(4, verbose=False)
     assert ts.cost < ts.cost_lst[0]
@@ -112,7 +114,8 @@ def test_cost_channels_split_matches_jax():
     js = jmpc.IrsMpc(jmpc.make_pendulum(0.05), _params(jmpc, "exact", T=20,
                                                          **kw))
     ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, "exact", T=20,
-                                                         **kw))
+                                                         **kw),
+                     device="cpu")
     want = [float(c) for c in js.eval_cost(js.x_trj, js.u_trj)]
     got = [float(c) for c in ts.eval_cost(ts.x_trj, ts.u_trj)]
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -120,7 +123,8 @@ def test_cost_channels_split_matches_jax():
 
 
 def test_history_and_best_tracking():
-    s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, "exact"))
+    s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, "exact"),
+                    device="cpu")
     seen = []
     s.params.iteration_callback = lambda it, x, u: seen.append(it)
     s.iterate(3, verbose=False)
@@ -138,7 +142,8 @@ def test_history_and_best_tracking():
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError):
         tmpc.IrsMpc(tmpc.make_pendulum(0.05),
-                    _params(tmpc, "exact", T=10, **{field: value}))
+                    _params(tmpc, "exact", T=10, **{field: value}),
+                    device="cpu")
 
 
 # Bounded pendulum solves (boxed ADMM, clipped feedback rollout): the
@@ -166,7 +171,7 @@ def test_bounded_exact_curve_matches_jax(case):
     js = jmpc.IrsMpc(jmpc.make_pendulum(0.05),
                      _params(jmpc, "exact", T=20, **kw))
     ts = tmpc.IrsMpc(tmpc.make_pendulum(0.05),
-                     _params(tmpc, "exact", T=20, **kw))
+                     _params(tmpc, "exact", T=20, **kw), device="cpu")
     assert ts._has_bounds()
     js.iterate(3, verbose=False)
     before = cuda_riccati.LAUNCHES
@@ -190,6 +195,15 @@ def test_bounded_exact_curve_matches_jax(case):
     if "u_bounds_rel" in kw:
         du = np.diff(ts.u_trj.numpy(), axis=0)
         assert np.abs(du).max() <= 0.5 + 1e-5
+
+
+def test_default_device_is_the_card():
+    """Without a device the solver runs on CUDA; with no CUDA device that
+    raises, and never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmpc.IrsMpc(tmpc.make_pendulum(0.05), _params(tmpc, "exact", T=10))
 
 
 def test_params_from_jax_refuses_what_cannot_cross():

@@ -9,8 +9,10 @@ on a machine with an H100 and the CUDA toolkit with
 
 The wrappers' argument checks run everywhere: each wrapper raises on CPU
 tensors, another dtype or shape, and sizes past its kernel's limits,
-before anything is launched."""
+before anything is launched.  K3's and K4's CUDA sources also run on the
+CPU, through the g++ emulation of ``irs_mpc_torch.tools.cpu_shim``."""
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -236,6 +238,51 @@ def test_admm_kernel_on_a_plain_tracking_problem_on_card():
     assert err < chip_smoke.ADMM_TOL
 
 
+@needs_cuda
+@pytest.mark.parametrize("n_phys, m, T, where", [
+    (34, 16, 5, "shared"),        # n = 50
+    (48, 16, 5, "shared"),        # n = 64
+    (34, 16, 10, "streamed"),     # n = 50, ~245 KB of operands
+    (48, 16, 12, "streamed"),     # n = 64
+])
+def test_admm_kernel_wide_matches_plain_on_card(n_phys, m, T, where):
+    """K3 at the widths past the planar hand (carrots' n = 50 and the
+    limit n = 64, m = 16), in both placements of the knots' operands: in
+    shared memory, and streamed from the global scratch through the
+    chains' cp.async ring.  Near-identity dynamics (spread 0.03), where
+    float32 determines the solution (``chip_smoke.delta_u_problem``)."""
+    prob, _ = chip_smoke.delta_u_problem(T=T, n=n_phys, m=m, seed=3,
+                                         spread=0.03)
+    n = prob.B.shape[1]
+    assert cuda_admm.placement(T, n, m) == where
+    idx_w = torch.arange(n_phys, n, device="cuda")
+    for kinds in (("u", "du"), ("x", "dx")):
+        bounds = chip_smoke.delta_u_bounds(kinds, T, n_phys, m)
+        z0, y0 = chip_smoke.admm_initial(prob, bounds, n_phys, idx_w)
+        err = chip_smoke.admm_errors(prob, bounds, z0, y0, n_phys=n_phys,
+                                     idx_w=idx_w, rho=1.0, iters=8,
+                                     over_relax=1.6)
+        assert err < chip_smoke.ADMM_TOL
+
+
+@needs_cuda
+def test_admm_kernel_streams_the_long_horizon_on_card():
+    """T = 200, n = 16, m = 4 (the shape of K1's bench row): ~450 KB of
+    knots' operands, past shared memory, so the chains stream them."""
+    prob = chip_smoke.bench_problem()
+    T, n, m = prob.B.shape
+    assert cuda_admm.placement(T, n, m) == "streamed"
+    bounds = admm.BoxBounds(
+        x=torch.stack([torch.full((T + 1, n), -1.0, device="cuda"),
+                       torch.full((T + 1, n), 1.0, device="cuda")]),
+        u=torch.stack([torch.full((T, m), -0.3, device="cuda"),
+                       torch.full((T, m), 0.3, device="cuda")]))
+    z0, y0 = chip_smoke.admm_initial(prob, bounds, n, None)
+    err = chip_smoke.admm_errors(prob, bounds, z0, y0, n_phys=n, idx_w=None,
+                                 rho=1.0, iters=12, over_relax=1.6)
+    assert err < chip_smoke.ADMM_TOL
+
+
 def _chain_inputs(aug, rel):
     """Line-search inputs around the planar hand's resting state
     (``chip_smoke.chain_inputs``: input boxes with an inf and a NaN
@@ -304,6 +351,117 @@ def test_box_slice_launches_on_card(name):
     assert solver.cost_best < solver.cost_lst[0]
 
 
+@needs_cuda
+def test_carrots_slice_launches_on_card():
+    """Carrots (45 dof, 500 rows) is past K2's and K4's limits: per
+    iteration one launch each of K1 and K3 (n = 45 + 5, m = 5) and none of
+    K2 and K4, its contact solves plain PyTorch on the card."""
+    solver, _ = chip_smoke.carrots_solver("cuda")
+    np.testing.assert_allclose(solver.cost_lst[0],
+                               chip_smoke.CARROTS_INITIAL, rtol=1e-3)
+    mods = (cuda_qp, cuda_riccati, cuda_admm, cuda_rollout)
+    before = [mod.LAUNCHES for mod in mods]
+    solver.iterate(2, verbose=False)
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [0, 2, 2, 0]
+    assert solver.cost_best < solver.cost_lst[0]
+
+
+# ---------------------------------------------------------------------------
+# K3's and K4's CUDA sources on the CPU, through tools.cpu_shim (g++, one OS
+# thread per CUDA thread): the kernels' arithmetic, barriers and shuffles,
+# against the plain versions, at small shapes.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shim_libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the CPU emulation of the kernels")
+    from irs_mpc_torch.ops import _nvcc
+    from irs_mpc_torch.tools import cpu_shim
+    libs = cpu_shim.build_all([_nvcc.CSRC / "admm.cu",
+                               _nvcc.CSRC / "rollout.cu"],
+                              tmp_path_factory.mktemp("shim"))
+    return dict(zip(("admm", "rollout"), libs))
+
+
+def _cpu(f):
+    """Run ``chip_smoke``'s constructor ``f`` for CPU tensors."""
+    saved, chip_smoke.DEVICE = chip_smoke.DEVICE, "cpu"
+    try:
+        return f()
+    finally:
+        chip_smoke.DEVICE = saved
+
+
+@pytest.mark.parametrize("n_phys, m, T, kinds, cap", [
+    (4, 3, 6, ("x", "u"), None),             # n = 7: width 8, shared
+    (4, 3, 6, ("dx", "du"), 4096),           # the same, streamed
+    (11, 5, 3, ("u", "du"), None),           # n = 16
+    (28, 5, 3, ("x", "du"), 8192),           # n = 33: two rows a lane
+])
+def test_admm_source_on_cpu_shim(shim_libs, n_phys, m, T, kinds, cap):
+    """K3's source against the plain loop at chain widths 8, 16 and 64, in
+    both placements of the knots' operands (a small shared-memory cap
+    forces the streamed one), at the card tests' tolerances."""
+    from irs_mpc_torch.tools import cpu_shim
+    lib = shim_libs["admm"]
+    cpu_shim.set_smem_cap(lib, cap or 232448)
+    cuda_admm._placements.clear()
+    prob, _ = _cpu(lambda: chip_smoke.delta_u_problem(
+        T=T, n=n_phys, m=m, seed=3, spread=0.1))
+    n = prob.B.shape[1]
+    idx_w = torch.arange(n_phys, n)
+    bounds = _cpu(lambda: chip_smoke.delta_u_bounds(kinds, T, n_phys, m))
+    z0, y0 = chip_smoke.admm_initial(prob, bounds, n_phys, idx_w)
+    kw = dict(n_phys=n_phys, idx_w=idx_w, rho=1.0, iters=3, over_relax=1.6)
+    try:
+        with cpu_shim.attached(cuda_admm, lib):
+            assert cuda_admm.placement(T, n, m) == (
+                "streamed" if cap else "shared")
+            x, u, K, k, z, zp = cuda_admm.solve_boxed_tvlqr_cuda(
+                prob, bounds, z0, y0, **kw)
+    finally:
+        cpu_shim.set_smem_cap(lib, 232448)
+        cuda_admm._placements.clear()
+    xr, ur, gr, zr, zpr = admm._admm_plain(prob, bounds, z0, y0, n_phys,
+                                           idx_w, 1.0, 3, 1.6)
+    for got, want in ((x, xr), (u, ur), (K, gr.K), (k, gr.k)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=chip_smoke.ADMM_TOL,
+                                   atol=chip_smoke.ADMM_TOL)
+    for kd in kinds:
+        np.testing.assert_allclose(getattr(z, kd).numpy(),
+                                   getattr(zr, kd).numpy(),
+                                   atol=chip_smoke.ADMM_TOL)
+
+
+@pytest.mark.parametrize("name, swapped, aug, rel, canon", [
+    ("planar_hand", False, True, True, False),
+    ("box_pushing", True, False, False, False),
+    ("box_pivoting", False, True, False, True),
+    ("plate_pickup", True, True, True, False),
+    ("circle_pair", False, False, True, True),
+])
+def test_rollout_source_on_cpu_shim(shim_libs, name, swapped, aug, rel,
+                                    canon):
+    """K4's source against the plain chain over the pair kinds, both
+    orders, with and without the prev-input block, relative bounds and
+    canonicalised duals, at CHAIN_ATOL."""
+    from irs_mpc_torch.tools import cpu_shim
+    model = chip_smoke.contact_models()[name]
+    if swapped:
+        model = chip_smoke.swap_pairs(model)
+    model = dataclasses.replace(model, canon_warm_duals=canon)
+    args = chip_smoke.chain_inputs(model, chip_smoke.CONTACT_Q0[name], A=2,
+                                   T=4, aug=aug, rel=rel, device="cpu")
+    with cpu_shim.attached(cuda_rollout, shim_libs["rollout"]):
+        xs, us = cuda_rollout.linesearch_rollout_cuda(model, **args)
+    xr, ur = chip_smoke.rollout.linesearch_rollout_plain(model, **args)
+    assert bool(torch.isfinite(xs).all())
+    assert (xs - xr).abs().max().item() < chip_smoke.CHAIN_ATOL
+    assert (us - ur).abs().max().item() < chip_smoke.CHAIN_ATOL
+
+
 def _cpu_qps(B=4, n=7, m=10):
     rng = np.random.RandomState(0)
 
@@ -362,7 +520,7 @@ def _cpu_admm(T=4, n=3, m=2, kinds=("u", "du")):
         u=a["bounds"].u[:, :2])), "shape"),
     (lambda a: dict(a, idx_w=None), "du box"),
     (lambda a: dict(a, idx_w=torch.arange(2)), "du box"),
-    (lambda a: dict(a, **_cpu_admm(n=31)), "n <= 32"),
+    (lambda a: dict(a, **_cpu_admm(n=63)), "n <= 64"),       # n = 65
 ])
 def test_admm_wrapper_refuses_what_the_kernel_does_not_take(fault, match):
     before = cuda_admm.LAUNCHES

@@ -81,7 +81,7 @@ def _port_solver(js, jm):
     tp = convert.params_from_jax(
         js.params, decay=lambda it: 1.0 / it ** 0.8,
         estimation_system=tm.estimation_surrogate())
-    return tmpc.IrsMpc(tm.system(), tp), tm
+    return tmpc.IrsMpc(tm.system(), tp, device="cpu"), tm
 
 
 def test_estimation_sweep_matches_jax(jax_iteration):
