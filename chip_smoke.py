@@ -11,9 +11,11 @@ exit code:
 1. builds the four kernels from ``irs_mpc_torch/csrc/`` (one nvcc each, all
    started together): K1 Riccati, K2 batched PDIP, K3 boxed ADMM, K4 the
    contact line-search chain;
-2. holds K1 against the plain PyTorch loop on the card at three problems
-   (pendulum T=200 n=2 m=1; a T=200 n=16 m=4 random problem; a Δu problem
-   with a cross term) and times both;
+2. holds K1 with its linear plan (``lqr_solve`` in one launch) against the
+   plain PyTorch loop and plan on the card at four problems (pendulum
+   T=200 n=2 m=1; a T=200 n=16 m=4 random problem, its knots streamed; a
+   Δu problem with a cross term; a Δu problem at n = 20 on the wide
+   block) and times both;
 3. drives the pendulum iRS-MPC slice (T=200, 1000 samples per knot,
    zero-order, 9 iterations) on the card and holds it to the reference
    cost curve: initial 1856.1541, final and best <= 360, one K1 launch per
@@ -27,8 +29,9 @@ exit code:
    the planar-hand slice's first iteration, on five bound-kind
    combinations of a seeded Δu problem and on wide problems in both
    placements of the knots' operands (n = 50 and 64 with m = 16 in shared
-   memory, and T = 200, n = 16, m = 4 streamed), and K1 against its plain
-   loop on that first-iteration problem, and times both;
+   memory, and T = 200, n = 16, m = 4 streamed), and K1 with its plan
+   against the plain loop on that first-iteration problem (the ADMM's
+   initial solve), and times both;
 6. holds K4 against the plain lane-batched chain on the line search of the
    slice's first iteration (6 lanes, T=30), and times both;
 7. drives the planar-hand iRS-MPC slice (T=30, 50 samples per knot,
@@ -62,7 +65,9 @@ exit code:
    and K3 and none of K2 and K4 (the model is past their limits; its
    contact solves run as plain PyTorch on the card).
 
-Every kernel's time stands beside its bound, the larger of its operations
+K1's rows time it with the plan, as every path calls it (``lqr_solve``);
+K2's name the lanes of its tile a QP.  Every kernel's time stands beside
+its bound, the larger of its operations
 over the card's float32 peak and its bytes over its memory rate.  The last
 lines are a JSON summary of the kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -86,7 +91,7 @@ from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
                                           quasistatic, rollout)
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
 
-REL_TOL = 1e-3          # max|ΔK| / max|K| and the same for k
+REL_TOL = 1e-3          # max|ΔK| / max|K|, the same for k, x and u
 INITIAL_COST = 1856.1541
 INITIAL_TOL = 0.01
 FINAL_COST_MAX = 360.0
@@ -594,6 +599,12 @@ def riccati_flops(T, n, m):
                 + 2 * m ** 2 * (m + n + 1) + 4 * n ** 2 + 4 * n * m)
 
 
+def plan_flops(T, n, m):
+    """Operations of the linear plan: per knot u = -(Kx + k) (2mn) and
+    x = Ax + Bu + c (2n² + 2nm)."""
+    return T * (2 * n * n + 4 * n * m)
+
+
 def pdip_flops(B, n, m, iters):
     """Operations of ``iters`` PDIP iterations on B QPs of n unknowns and m
     rows: H = P + C'WC (2mn²), its Gauss-Jordan solve (2n²(n + 1)), the four
@@ -637,29 +648,38 @@ def report(kernel, shape, card, err, ms, plain_ms, flops, nbytes):
     return row
 
 
+def plain_lqr_solve(prob):
+    """K1's plain version with its plan: the plain loop, then
+    ``lqr_rollout_linear`` on its gains."""
+    gains = lqr.riccati_backward_plain(prob)
+    return lqr.lqr_rollout_linear(prob, gains) + (gains.K, gains.k)
+
+
 def k1_row(shape, prob, card, reps=(20, 5)):
-    """K1 against the plain loop: K and k each within REL_TOL of the
-    largest plain gain."""
+    """K1 with its plan against the plain loop and plan: K, k, x and u
+    each within REL_TOL of the largest plain value."""
     prob = lqr.LqrProblem(*(a.contiguous() for a in prob))
-    ref = lqr.riccati_backward_plain(prob)
-    K, k = cuda_riccati.riccati_backward_cuda(prob)
+    T, n, m = prob.B.shape
+    got = cuda_riccati.lqr_solve_cuda(prob)
+    want = plain_lqr_solve(prob)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(K).all() and torch.isfinite(k).all()),
-          f"K1 {shape}: non-finite gains from the kernel")
     err = 0.0
-    for label, got, want in (("K", K, ref.K), ("k", k, ref.k)):
-        diff = (got - want).abs().max().item()
+    for label, g, w in zip(("x", "u", "K", "k"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"K1 {shape}: non-finite {label} from the kernel")
+        diff = (g - w).abs().max().item()
         err = max(err, diff)
-        rel = diff / want.abs().max().item()
+        rel = diff / w.abs().max().item()
         print(f"[K1] {shape}: rel err {label} {rel:.3e}")
         check(rel < REL_TOL, f"K1 {shape}: kernel {label} disagrees with the "
                              f"plain loop: rel err {rel:.3e} >= {REL_TOL}")
-    ms = median_ms(lambda: cuda_riccati.riccati_backward_cuda(prob), reps[0])
-    plain_ms = median_ms(lambda: lqr.riccati_backward_plain(prob), reps[1])
-    T, n, m = prob.B.shape
-    return report("K1", shape, card, err, ms, plain_ms,
-                  riccati_flops(T, n, m),
-                  tensor_bytes(prob) + tensor_bytes((K, k)))
+    print(f"[K1] {shape}: the knots' operands "
+          f"{cuda_riccati.placement(T, n, m)}")
+    ms = median_ms(lambda: cuda_riccati.lqr_solve_cuda(prob), reps[0])
+    plain_ms = median_ms(lambda: plain_lqr_solve(prob), reps[1])
+    return report("K1", shape + ", with the plan", card, err, ms, plain_ms,
+                  riccati_flops(T, n, m) + plan_flops(T, n, m),
+                  tensor_bytes(prob) + tensor_bytes(got))
 
 
 def quantile_err(got, ref, pct, scale=None):
@@ -676,8 +696,10 @@ def k2_row(shape, qps, iters, card):
     of the card test of the kernel's generic instance: at p90 and p99 the
     kernel is within 2.5x of the plain float32 solve's error."""
     (x, lam), (xp, lamp), rel = qp_gaps(qps, iters)
-    print(f"[K2] {shape}: kernel-plain max rel err x {rel[0]:.3e}, "
-          f"lam {rel[1]:.3e}")
+    B, n = qps[1].shape
+    m = qps[3].shape[1]
+    print(f"[K2] {shape}: {cuda_qp.lanes(n, m)} lanes a QP; kernel-plain "
+          f"max rel err x {rel[0]:.3e}, lam {rel[1]:.3e}")
     if max(rel) > QP_REL_TOL:
         print(f"[K2] {shape}: past {QP_REL_TOL}; float32 does not determine "
               f"these QPs' solutions that closely, so both solves are held "
@@ -704,8 +726,6 @@ def k2_row(shape, qps, iters, card):
     ms = median_ms(lambda: cuda_qp.solve_qp_batched_cuda(*qps, iters), 20)
     plain_ms = median_ms(lambda: cuda_qp.solve_qp_batched_plain(*qps, iters),
                          5)
-    B, n = qps[1].shape
-    m = qps[3].shape[1]
     return report("K2", shape, card, err, ms, plain_ms,
                   pdip_flops(B, n, m, iters),
                   tensor_bytes(qps) + x.numel() * x.element_size())
@@ -860,7 +880,7 @@ def profile_iteration(solver, iterations, card):
     patches = [(irs_mpc, "estimate_tv_matrices_fnom", "estimation"),
                (irs_mpc, "decouple_AB", "decouple_AB"),
                (irs_mpc.admm_ops, "solve_boxed_tvlqr",
-                "boxed ADMM (K1, linear plan, K3)")]
+                "boxed ADMM (K1 with its plan, K3)")]
     real = [getattr(mod, name) for mod, name, _ in patches]
     system = solver.system
     for mod, name, key in patches:
@@ -964,7 +984,9 @@ def main():
     rows = [k1_row(shape, prob, card, reps=(50, 10)) for shape, prob in (
         ("pendulum T=200 n=2 m=1", pend),
         ("bench T=200 n=16 m=4", bench_problem()),
-        ("delta-u T=200 n=3 m=1 (N!=0)", pend_du))]
+        ("delta-u T=200 n=3 m=1 (N!=0)", pend_du),
+        ("delta-u T=4 n=20 m=5 (N!=0, wide block)",
+         delta_u_problem(T=4, n=15, m=5, seed=3, spread=0.03)[0]))]
 
     # -- Phase 3: the pendulum slice on the card -----------------------------
     params = IrsMpcParams(

@@ -4,13 +4,13 @@
 q (B,n), C (B,m,n), d (B,m) by the fixed-iteration primal-dual interior
 point method of ``qp._pdip_solve``, optionally warm-started from
 ``init=(x0 (B,n), lam0 (B,m))`` and optionally returning the final duals
-(``want_lam``).  CUDA tensors launch the kernel (``csrc/pdip.cu``, one QP
-per thread) and raise if it cannot run; CPU tensors run the plain version,
-``_pdip_solve`` over the batch.
+(``want_lam``).  CUDA tensors launch the kernel (``csrc/pdip.cu``, a tile
+of 8, 16 or 32 lanes per QP, ``lanes``) and raise if it cannot run; CPU
+tensors run the plain version, ``_pdip_solve`` over the batch.
 
-The wrapper lays the inputs out batch-last (struct of arrays: entry (i, j)
-of every QP side by side), so that neighbouring threads read neighbouring
-addresses; it takes inputs of any strides for that reason.
+The kernel reads the inputs batch-first as the caller holds them and
+writes x and the duals in the same layout; an input that is not
+contiguous is copied once (the main path's are contiguous).
 """
 from __future__ import annotations
 
@@ -34,9 +34,17 @@ def _bind(lib):
                                    + [ctypes.c_int] * 4 + [ctypes.c_float]
                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.pdip_solve_f32.restype = ctypes.c_int
+    lib.pdip_lanes.argtypes = [ctypes.c_int] * 2
+    lib.pdip_lanes.restype = ctypes.c_int
 
 
 LIB = KernelLibrary("pdip.cu", _bind, "pdip_error_string")
+
+
+def lanes(n: int, m: int) -> int:
+    """The lanes of the kernel's tile for one (n, m) QP (32 for the generic
+    instance, fewer for a model's compile-time one)."""
+    return LIB.load().pdip_lanes(n, m)
 
 
 def solve_qp_batched_plain(P, q, C, d, iters: int = 30, sigma: float = 0.25,
@@ -79,14 +87,11 @@ def solve_qp_batched_cuda(P, q, C, d, iters: int = 30, sigma: float = 0.25,
         shapes["lam0"] = (init[1], (B, m))
     device = check_tensors("the batched QP kernel", shapes, contiguous=False)
 
-    def soa(a):
-        """(B, ...) -> (..., B), contiguous."""
-        return a.permute(*range(1, a.dim()), 0).contiguous()
-
-    ins = [soa(P), soa(q), soa(C), soa(d)]
-    ins += [soa(init[0]), soa(init[1])] if init is not None else [None, None]
-    x = torch.empty((n, B), dtype=torch.float32, device=device)
-    lam = (torch.empty((m, B), dtype=torch.float32, device=device)
+    ins = [a.contiguous() for a in (P, q, C, d)]
+    ins += ([a.contiguous() for a in init] if init is not None
+            else [None, None])
+    x = torch.empty((B, n), dtype=torch.float32, device=device)
+    lam = (torch.empty((B, m), dtype=torch.float32, device=device)
            if want_lam else None)
     ptrs = [0 if a is None else a.data_ptr() for a in ins + [x, lam]]
     lib = LIB.load()
@@ -96,4 +101,4 @@ def solve_qp_batched_cuda(P, q, C, d, iters: int = 30, sigma: float = 0.25,
                                  stream_of(device))
     LIB.check(err, "batched QP kernel")
     LAUNCHES += 1
-    return (x.T, lam.T) if want_lam else x.T
+    return (x, lam) if want_lam else x

@@ -144,17 +144,19 @@ def check_tensors(what: str, tensors: dict, contiguous: bool = True,
     (``tools.cpu_shim``) asks for "cpu"."""
     device = None
     for name, (a, shape) in tensors.items():
-        if a.dtype != torch.float32:
+        if a.dtype is not torch.float32:
             raise ValueError(f"{what}: {name} is {a.dtype}, the kernel "
                              "takes float32")
-        if tuple(a.shape) != tuple(shape):
+        if a.shape != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(a.shape)}, "
                              f"expected {tuple(shape)}")
         if contiguous and not a.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-        device = a.device if device is None else device
-        if a.device != device:
-            raise ValueError(f"{what}: {name} is on {a.device}, the others "
+        d = a.device
+        if device is None:
+            device = d
+        elif d != device:
+            raise ValueError(f"{what}: {name} is on {d}, the others "
                              f"on {device}")
     if device is None or device.type != device_type:
         raise ValueError(f"{what} needs {device_type.upper()} tensors, got "

@@ -6,9 +6,11 @@ The problem is the canonical stage form of the JAX package's ``ops/lqr.py``:
          + x_T'Q_T x_T + 2 q_T'x_T
     s.t. x_{t+1} = A_t x_t + B_t u_t + c_t,  x_0 given
 
-(no 1/2 factors).  ``riccati_backward`` follows the tensors' device: CUDA
-tensors go through the hand-written kernel (``cuda_riccati``), CPU tensors
-through the plain loop ``riccati_backward_plain``.
+(no 1/2 factors).  ``riccati_backward`` and ``lqr_solve`` follow the
+tensors' device: CUDA tensors go through the hand-written kernel
+(``cuda_riccati``; ``lqr_solve`` rolls the linear plan out in the same
+launch), CPU tensors through the plain loop ``riccati_backward_plain`` (and
+``lqr_rollout_linear`` after it).
 """
 from __future__ import annotations
 
@@ -85,16 +87,20 @@ def riccati_backward_plain(prob: LqrProblem) -> LqrGains:
                     P=torch.stack([P] + Ps), p=torch.stack([p] + ps))
 
 
-def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
-    """Riccati backward pass by the tensors' device.
-
-    CUDA tensors launch the hand-written kernel and raise if it cannot run;
-    CPU tensors run ``riccati_backward_plain``."""
+def _check_backend(backend: str) -> None:
     if backend == "assoc":
         raise NotImplementedError(
             "the associative-scan Riccati pass is not ported yet")
     if backend != "auto":
         raise ValueError(f"riccati backend {backend!r} is not 'auto'")
+
+
+def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
+    """Riccati backward pass by the tensors' device.
+
+    CUDA tensors launch the hand-written kernel and raise if it cannot run;
+    CPU tensors run ``riccati_backward_plain``."""
+    _check_backend(backend)
     device = prob.A.device
     if _nvcc.on_card(prob.A):
         K, k = cuda_riccati.riccati_backward_cuda(
@@ -167,7 +173,16 @@ def lqr_rollout_linear(prob: LqrProblem, gains: LqrGains):
 
 def lqr_solve(prob: LqrProblem, backend: str = "auto"):
     """Solve the unconstrained affine-quadratic problem exactly.
-    Returns (x_trj, u_trj, gains)."""
+    Returns (x_trj, u_trj, gains).
+
+    CUDA tensors: one launch of the kernel, backward pass and plan (P and
+    p stay on chip, None); CPU tensors: ``riccati_backward_plain`` and
+    ``lqr_rollout_linear``."""
+    _check_backend(backend)
+    if _nvcc.on_card(prob.A):
+        x_trj, u_trj, K, k = cuda_riccati.lqr_solve_cuda(
+            LqrProblem(*(a.contiguous() for a in prob)))
+        return x_trj, u_trj, LqrGains(K=K, k=k, P=None, p=None)
     gains = riccati_backward(prob, backend)
     x_trj, u_trj = lqr_rollout_linear(prob, gains)
     return x_trj, u_trj, gains

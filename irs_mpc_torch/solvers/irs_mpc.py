@@ -372,8 +372,7 @@ class IrsMpc:
                 over_relax=p.admm_over_relax)
             K, z_plan, u_plan = sol.gains.K, sol.x_trj, sol.u_trj
         else:
-            gains = lqr_ops.riccati_backward(prob)
-            z_plan, u_plan = lqr_ops.lqr_rollout_linear(prob, gains)
+            z_plan, u_plan, gains = lqr_ops.lqr_solve(prob)
             K = gains.K
         # Sanitise: a degenerate estimate must not poison the alpha=0 lane,
         # which reproduces the nominal trajectory exactly.

@@ -99,11 +99,15 @@ template <class T> T shim_exchange(T v, int src) {
   std::memcpy(&out, &r, sizeof(T));
   return out;
 }
-template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
-  return shim_exchange(v, src);
+// With a width below 32 the warp is split into segments of that many
+// lanes, each shuffling within itself, as on the card.
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  return shim_exchange(v, (lane & ~(width - 1)) + (src & (width - 1)));
 }
-template <class T> T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
-  return shim_exchange(v, (int)(threadIdx.x % 32) ^ mask);
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
+  const int lane = threadIdx.x % 32, src = lane ^ mask;
+  return shim_exchange(v, src / width == lane / width ? src : lane);
 }
 
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {

@@ -5,8 +5,9 @@ there is no GPU and no nvcc.
 ``cpu_shim.h`` (kernel launches become ``shim_launch`` calls, dynamic
 shared memory a buffer) and compiles it with g++ into a shared library,
 one g++ process per source, all started together.  ``attached(module,
-lib)`` points a kernel wrapper (``ops.cuda_admm``,
-``models.contact.cuda_rollout``) at such a library for CPU tensors while
+lib)`` points a kernel wrapper (``ops.cuda_riccati``, ``ops.cuda_admm``,
+``models.contact.cuda_qp``, ``models.contact.cuda_rollout``) at such a
+library for CPU tensors while
 the context lasts, so that the wrapper, the kernel's source and the plain
 version can be compared as the card tests compare them.  Each CUDA thread
 is an OS thread, so a block of 256 threads is slow: keep the shapes small.

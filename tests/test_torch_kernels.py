@@ -9,8 +9,8 @@ on a machine with an H100 and the CUDA toolkit with
 
 The wrappers' argument checks run everywhere: each wrapper raises on CPU
 tensors, another dtype or shape, and sizes past its kernel's limits,
-before anything is launched.  K3's and K4's CUDA sources also run on the
-CPU, through the g++ emulation of ``irs_mpc_torch.tools.cpu_shim``."""
+before anything is launched.  All four CUDA sources also run on the CPU,
+through the g++ emulation of ``irs_mpc_torch.tools.cpu_shim``."""
 import dataclasses
 import shutil
 
@@ -56,12 +56,48 @@ def test_kernel_matches_plain_loop(case):
 
 
 @needs_cuda
+@pytest.mark.parametrize("case, where", [
+    ("pendulum", "shared"), ("bench", "streamed"), ("delta_u", "shared"),
+    ("wide_shared", "shared"), ("wide_streamed", "streamed")])
+def test_lqr_solve_kernel_matches_plain_on_card(case, where):
+    """K1 with the plan in the same launch, in both placements of the
+    knots' operands, at widths 2, 4, 16, 32 (n = 20, staged) and 64 (n =
+    50, streamed): K, k, x and u within REL_TOL of
+    the largest plain value, x and u against ``lqr_rollout_linear`` on the
+    plain gains."""
+    if case.startswith("wide"):
+        T = 4 if case == "wide_shared" else 12
+        prob, _ = chip_smoke.delta_u_problem(
+            T=T, n=15 if case == "wide_shared" else 45, m=5, seed=3,
+            spread=0.03)
+    else:
+        prob = _cuda_problems()[case]
+    prob = lqr.LqrProblem(*(a.contiguous() for a in prob))
+    assert cuda_riccati.placement(*prob.B.shape) == where
+    ref = lqr.riccati_backward_plain(prob)
+    xr, ur = lqr.lqr_rollout_linear(prob, ref)
+    before = cuda_riccati.LAUNCHES
+    x, u, K, k = cuda_riccati.lqr_solve_cuda(prob)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES == before + 1
+    for got, want in ((K, ref.K), (k, ref.k), (x, xr), (u, ur)):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel < chip_smoke.REL_TOL
+
+
+@needs_cuda
 def test_dispatch_launches_kernel_on_cuda():
+    """``riccati_backward`` and ``lqr_solve`` on CUDA tensors: one launch
+    each, P and p kept on chip."""
     prob = _cuda_problems()["pendulum"]
     before = cuda_riccati.LAUNCHES
     gains = lqr.riccati_backward(prob)
     assert cuda_riccati.LAUNCHES == before + 1
     assert gains.P is None and gains.K.is_cuda
+    x, u, solved = lqr.lqr_solve(prob)
+    assert cuda_riccati.LAUNCHES == before + 2
+    assert solved.P is None and x.is_cuda and x.shape == (prob.B.shape[0]
+                                                          + 1, 2)
 
 
 @needs_cuda
@@ -178,7 +214,7 @@ def test_rollout_kernel_matches_plain_and_slice_launches_on_card():
 @needs_cuda
 @pytest.mark.parametrize("n, m", [(5, 8), (16, 64), (1, 1)])
 def test_qp_kernel_generic_shapes_match_plain_on_card(n, m):
-    """Shapes other than the planar hand's take the kernel's generic
+    """Shapes other than the models' take the kernel's generic
     instance: random strictly convex QPs with feasible boxes.  A few hard
     lanes of such a batch are float32-sensitive at 30 iterations: at
     (16, 64) the plain float32 solve is off the float64 one by 2.0e-4 at
@@ -219,6 +255,33 @@ def test_qp_kernel_generic_shapes_match_plain_on_card(n, m):
                 2.5 * p(plain, ref, pct, ref), 1e-6)
     assert p(x, xr, 0.5, conv) < 1e-4
     assert p(x, xr, 0.9, conv) < 5e-3
+
+
+@needs_cuda
+@pytest.mark.parametrize("n, m", [(7, 10), (5, 2), (5, 18), (8, 16), (3, 4)])
+def test_qp_kernel_instances_match_plain_on_card(n, m):
+    """Every compile-time instance (planar hand, box pushing, box pivoting,
+    plate pickup) and the generic one, on the CPU shim test's random QPs:
+    257 QPs (a ragged last block), cold at 8 iterations with the duals,
+    then warm from them at 4, at the smoke run's QP_REL_TOL and
+    QP_WARM_REL_TOL (short solves, before float32 leaves the active rows
+    undetermined)."""
+    qps = [a.cuda() for a in _random_qps(257, n, m, seed=10 * n + m)]
+    before = cuda_qp.LAUNCHES
+    x, lam = cuda_qp.solve_qp_batched(*qps, 8, want_lam=True)
+    xw, lamw = cuda_qp.solve_qp_batched(*qps, 4, init=(x, lam),
+                                        want_lam=True)
+    xr, lamr = cuda_qp.solve_qp_batched_plain(*qps, 8, want_lam=True)
+    xwr, lamwr = cuda_qp.solve_qp_batched_plain(*qps, 4, init=(xr, lamr),
+                                                want_lam=True)
+    torch.cuda.synchronize()
+    assert cuda_qp.LAUNCHES == before + 2
+    for got, want, tol in ((x, xr, chip_smoke.QP_REL_TOL),
+                           (lam, lamr, chip_smoke.QP_REL_TOL),
+                           (xw, xwr, chip_smoke.QP_WARM_REL_TOL),
+                           (lamw, lamwr, chip_smoke.QP_WARM_REL_TOL)):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= tol
 
 
 @needs_cuda
@@ -367,10 +430,13 @@ def test_carrots_slice_launches_on_card():
 
 
 # ---------------------------------------------------------------------------
-# K3's and K4's CUDA sources on the CPU, through tools.cpu_shim (g++, one OS
-# thread per CUDA thread): the kernels' arithmetic, barriers and shuffles,
-# against the plain versions, at small shapes.
+# The CUDA sources on the CPU, through tools.cpu_shim (g++, one OS thread per
+# CUDA thread): the kernels' arithmetic, barriers and shuffles, against the
+# plain versions, at small shapes.
 # ---------------------------------------------------------------------------
+
+SHIM_SOURCES = ("admm", "rollout", "riccati", "pdip")
+
 
 @pytest.fixture(scope="module")
 def shim_libs(tmp_path_factory):
@@ -378,10 +444,10 @@ def shim_libs(tmp_path_factory):
         pytest.skip("needs g++ for the CPU emulation of the kernels")
     from irs_mpc_torch.ops import _nvcc
     from irs_mpc_torch.tools import cpu_shim
-    libs = cpu_shim.build_all([_nvcc.CSRC / "admm.cu",
-                               _nvcc.CSRC / "rollout.cu"],
+    libs = cpu_shim.build_all([_nvcc.CSRC / f"{name}.cu"
+                               for name in SHIM_SOURCES],
                               tmp_path_factory.mktemp("shim"))
-    return dict(zip(("admm", "rollout"), libs))
+    return dict(zip(SHIM_SOURCES, libs))
 
 
 def _cpu(f):
@@ -460,6 +526,87 @@ def test_rollout_source_on_cpu_shim(shim_libs, name, swapped, aug, rel,
     assert bool(torch.isfinite(xs).all())
     assert (xs - xr).abs().max().item() < chip_smoke.CHAIN_ATOL
     assert (us - ur).abs().max().item() < chip_smoke.CHAIN_ATOL
+
+
+@pytest.mark.parametrize("T, n_phys, m, cap, where", [
+    (5, 1, 1, None, "shared"),        # n = 2: width 2, one warp
+    (3, 3, 1, 1300, "streamed"),      # n = 4: width 4
+    (4, 5, 2, None, "shared"),        # n = 7: width 8, 64 threads
+    (4, 5, 2, 4000, "streamed"),
+    (3, 9, 4, None, "shared"),        # n = 13: width 16, m padded to 4
+    (3, 9, 4, 12000, "streamed"),
+    (2, 14, 4, None, "shared"),       # n = 18: width 32, 256 threads
+    (3, 13, 5, 48000, "streamed"),    # m padded to 8
+    (2, 45, 5, None, "shared"),       # n = 50 (carrots): width 64
+    (3, 45, 5, 150000, "streamed"),
+])
+def test_riccati_source_on_cpu_shim(shim_libs, T, n_phys, m, cap, where):
+    """K1's source against the plain loop and the plain plan at every
+    compile-time width, in both placements of the knots' operands (a small
+    shared-memory cap forces the streamed one):
+    K, k, x and u within REL_TOL of the largest plain value, and the
+    backward pass alone with the same gains."""
+    from irs_mpc_torch.tools import cpu_shim
+    lib = shim_libs["riccati"]
+    cpu_shim.set_smem_cap(lib, cap or 232448)
+    cuda_riccati._placements.clear()
+    prob, _ = _cpu(lambda: chip_smoke.delta_u_problem(
+        T=T, n=n_phys, m=m, seed=n_phys, spread=0.1))
+    prob = lqr.LqrProblem(*(a.contiguous() for a in prob))
+    try:
+        with cpu_shim.attached(cuda_riccati, lib):
+            assert cuda_riccati.placement(*prob.B.shape) == where
+            x, u, K, k = cuda_riccati.lqr_solve_cuda(prob)
+            K0, k0 = cuda_riccati.riccati_backward_cuda(prob)
+    finally:
+        cpu_shim.set_smem_cap(lib, 232448)
+        cuda_riccati._placements.clear()
+    ref = lqr.riccati_backward_plain(prob)
+    xr, ur = lqr.lqr_rollout_linear(prob, ref)
+    for got, want in ((K, ref.K), (k, ref.k), (x, xr), (u, ur)):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel < chip_smoke.REL_TOL
+    assert torch.equal(K0, K) and torch.equal(k0, k)
+
+
+def _random_qps(B, n, m, seed):
+    """B random strictly convex QPs with feasible boxes (the construction
+    of the card test of the generic instance)."""
+    g = torch.Generator().manual_seed(seed)
+    L = torch.randn(B, n, n, generator=g) * 0.3
+    return (torch.eye(n) + L @ L.transpose(1, 2), torch.randn(B, n,
+                                                              generator=g),
+            torch.randn(B, m, n, generator=g),
+            torch.randn(B, m, generator=g).abs() + 0.1)
+
+
+@pytest.mark.parametrize("n, m, B", [
+    (7, 10, 5),      # planar hand: 16 lanes a QP
+    (5, 2, 19),      # box pushing: 8 lanes, a ragged last block
+    (5, 18, 3),      # box pivoting: 32 lanes
+    (8, 16, 3),      # plate pickup: 16 lanes
+    (3, 4, 3),       # the generic instance, 16 columns
+    (16, 40, 2),     # the generic instance, two rows a lane
+])
+def test_pdip_source_on_cpu_shim(shim_libs, n, m, B):
+    """K2's source against the plain PDIP on each compile-time instance and
+    the generic one: cold at 8 iterations with the duals, then warm from
+    them at 4, at the smoke run's QP_REL_TOL and QP_WARM_REL_TOL."""
+    from irs_mpc_torch.tools import cpu_shim
+    qps = _random_qps(B, n, m, seed=10 * n + m)
+    with cpu_shim.attached(cuda_qp, shim_libs["pdip"]):
+        x, lam = cuda_qp.solve_qp_batched_cuda(*qps, 8, want_lam=True)
+        xw, lamw = cuda_qp.solve_qp_batched_cuda(*qps, 4, init=(x, lam),
+                                                 want_lam=True)
+    xr, lamr = cuda_qp.solve_qp_batched_plain(*qps, 8, want_lam=True)
+    xwr, lamwr = cuda_qp.solve_qp_batched_plain(*qps, 4, init=(xr, lamr),
+                                                want_lam=True)
+    for got, want, tol in ((x, xr, chip_smoke.QP_REL_TOL),
+                           (lam, lamr, chip_smoke.QP_REL_TOL),
+                           (xw, xwr, chip_smoke.QP_WARM_REL_TOL),
+                           (lamw, lamwr, chip_smoke.QP_WARM_REL_TOL)):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= tol
 
 
 def _cpu_qps(B=4, n=7, m=10):

@@ -90,6 +90,21 @@ def test_riccati_and_rollout_match_jax(case):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lqr_solve_matches_jax(case):
+    """``lqr_solve`` on CPU tensors (the plain version of K1 with its plan:
+    ``riccati_backward_plain`` and ``lqr_rollout_linear``) against the JAX
+    package's ``lqr_solve``: x, u, K and k at the rtol/atol of the plain
+    loop's parity above."""
+    jprob, tprob = _both(case)
+    jx, ju, jg = jlqr.lqr_solve(jprob)
+    tx, tu, tg = tlqr.lqr_solve(tprob)
+    for name, got, want in (("x", tx, jx), ("u", tu, ju), ("K", tg.K, jg.K),
+                            ("k", tg.k, jg.k)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
 @pytest.mark.parametrize("case", ["tracking", "delta_u"])
 def test_gains_match_pallas_kernel_in_interpret_mode(case):
     jprob, tprob = _both(case)
@@ -120,10 +135,11 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 def test_riccati_backend_other_than_auto_raises():
     _, tprob = _both("tracking")
-    with pytest.raises(NotImplementedError):
-        tlqr.riccati_backward(tprob, backend="assoc")
-    with pytest.raises(ValueError):
-        tlqr.riccati_backward(tprob, backend="pallas")
+    for fn in (tlqr.riccati_backward, tlqr.lqr_solve):
+        with pytest.raises(NotImplementedError):
+            fn(tprob, backend="assoc")
+        with pytest.raises(ValueError):
+            fn(tprob, backend="pallas")
 
 
 def test_problem_from_numpy_and_split_augmented():
