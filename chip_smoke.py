@@ -63,12 +63,41 @@ exit code:
    samples per knot, 3 iterations): initial cost 211.8252 within 0.1%,
    best within 12% of 172.98, per iteration exactly 1 launch each of K1
    and K3 and none of K2 and K4 (the model is past their limits; its
-   contact solves run as plain PyTorch on the card).
+   contact solves run as plain PyTorch on the card);
+14. the CEM baseline: K4 against its plain chain on the first population
+   of the planar-hand CEM (2000 open-loop lanes, T=30) and of the
+   box-pushing one (100 x 60), then the CEM configurations of the JAX
+   package's examples (planar hand 40 iterations, box pushing 15, pendulum
+   150, bicycle to the hard goal 25, box pivoting 20), each with its
+   initial cost within 0.1 % and its best at most 1.12 x its committed
+   curve's last value (box pivoting: below its initial cost), and exactly
+   2 K4 launches an iteration where the model has a whole-chain rollout
+   (the planar hand, box pushing) and none otherwise;
+15. ``forward_mode="resolve"``: K3 and K1 against their plain versions on
+   the masked problem of the planar hand's first resolve iteration at knot
+   15 and of the pendulum's (T=50, n=2, m=1) at knot 25, then the pendulum with a binding input box (T=50, 5 iterations,
+   |u| within the box, best within 20 % of the feedback mode's after 8),
+   T launches each of K1 and K3 an iteration; then the planar hand, 2
+   iterations (2 K2, 30 K1, 30 K3, no K4 an iteration);
+16. plate pickup (T=30, 100 samples a knot, relative input bounds, 30
+   sweeps): K2 (both calls), K3 and K1 on its first iteration, then 8
+   iterations for each of sixteen seeds, 2 K2 and 1 each of K1 and K3 an
+   iteration and no K4 (``chain_gate``), the median best within 12 % of
+   3.216; then one first_order iteration, whose nominal step goes through
+   the estimation surrogate's batched step (1 K2);
+17. K1 against its plain version on the quadrotor's first-iteration
+   problem (T=200, n=12, m=4), K3 and K1 on the three carts' (T=100, n=6,
+   m=2, u box); then the quadrotor (T=200, 1000 samples, 7 iterations)
+   and the three carts (T=100, 1000 samples with projection, 20
+   iterations) iRS examples:
+   initial costs within 0.1 %, best within 12 % of their committed curves'
+   minima, 1 K1 an iteration (and 1 K3 for the carts' input box).
 
-K1's rows time it with the plan, as every path calls it (``lqr_solve``);
-K2's name the lanes of its tile a QP.  Every kernel's time stands beside
-its bound, the larger of its operations
-over the card's float32 peak and its bytes over its memory rate.  The last
+Each phase prints its wall seconds.  K1's rows time it with the plan, as
+every path calls it (``lqr_solve``); K2's name the lanes of its tile a
+QP.  Every kernel's time stands beside its bound, the larger of its
+operations over the card's float32 peak and its bytes over its memory
+rate.  The last
 lines are a JSON summary of the kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -80,13 +109,16 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from irs_mpc_torch import (IrsMpc, IrsMpcParams, SmoothingConfig,
+from irs_mpc_torch import (CemParams, CrossEntropyMethod, IrsMpc,
+                           IrsMpcParams, SmoothingConfig, make_bicycle,
                            make_box_pivoting, make_box_pushing, make_carrots,
-                           make_pendulum, make_planar_hand, make_plate_pickup)
+                           make_pendulum, make_planar_hand, make_plate_pickup,
+                           make_quadrotor, make_three_cart)
 from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
                                           quasistatic, rollout)
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
@@ -111,6 +143,52 @@ BOX_PIVOTING_T, BOX_PIVOTING_INITIAL, BOX_PIVOTING_BEST = 40, 786.3928, 317.41
 # Carrots at its golden's 3 descents (tests/test_golden_contact.py:65-73).
 CARROTS_T, CARROTS_S, CARROTS_ITERATIONS = 10, 30, 3
 CARROTS_INITIAL, CARROTS_BEST = 211.8252, 172.98
+# Plate pickup at its golden's 8 descents (tests/test_golden_contact.py:38).
+# Its 8-descent best depends on the random stream: on some streams the line
+# search stalls near 3.6-4.1 for the rest of the descents (the JAX package
+# on the CPU, seeds 0-5: 3.197, 3.304, 3.185, 3.206, 3.683, 3.339).  On the
+# card, seeds 0-31 (irs_mpc_torch/tools/probe_plate_seeds.py): median
+# 3.4486 and 23 of 32 within 12 % with K2, median 3.4679 and 23 of 32 with
+# the plain PDIP on the same streams, so the spread is the descent's, not
+# K2's.  The golden is held on the median best over seeds 0-15 of the
+# solver's own stream (3.5258 with K2, 3.5229 plain: a 2 % margin to the
+# bound; about 140 s of the smoke).
+PLATE_T, PLATE_S, PLATE_ITERATIONS = 30, 100, 8
+PLATE_INITIAL, PLATE_BEST, PLATE_SEEDS = 482.9550, 3.216, tuple(range(16))
+# Resolve mode (tests/test_irs_mpc.py:137-154): the pendulum with a binding
+# input box, held within 20 % of the feedback mode's best after 8
+# iterations; then the planar hand, 2 iterations.
+RESOLVE_T, RESOLVE_ITERATIONS, RESOLVE_FEEDBACK_ITERATIONS = 50, 5, 8
+RESOLVE_U_MAX, RESOLVE_BEST_RTOL, HAND_RESOLVE_ITERATIONS = 2.0, 0.2, 2
+# The analytic models' iRS examples, held to their committed curves'
+# minima within 12 % (examples/analysis/*_zero_order.csv).
+QUAD_T, QUAD_S, QUAD_ITERATIONS, QUAD_INITIAL = 200, 1000, 7, 178342.25
+CART_T, CART_S, CART_ITERATIONS, CART_INITIAL = 100, 1000, 20, 631.3722
+ANALYSIS = Path(__file__).resolve().parent / "examples" / "analysis"
+# The CEM baseline on the card: (label, builder, iterations, the initial
+# cost in float32, the committed curve, K4 launches an iteration, whether
+# the best is held one-sided to 1.12 x the curve's last value).  The
+# initial costs are what both packages compute in float32 on the CPU
+# (tests/test_torch_cem.py); the curves were recorded on a TPU, where the
+# JAX package's CEM rolls and costs its initial trajectory at the default
+# matmul precision, and their first values lie within 0.1 % of these but
+# for the planar hand's (325.5162, 0.15 % above).  Box pivoting's CEM model
+# keeps its warm duals uncanonicalised, so ``chain_gate`` (stiff actuation,
+# Kp = 5e4) keeps K4 off it, as the JAX package's gate does, and its search
+# is basin-chaotic across program versions (examples/box_pivoting.py:93-100):
+# its best is held only below its initial cost.
+CEM_CASES = (
+    ("planar_hand_cem", "planar_hand_cem", 40, 325.0136, "planar_hand_cem",
+     2, True),
+    ("box_pushing_cem", "box_pushing_cem", 15, 134.4132, "box_pushing_cem",
+     2, True),
+    ("pendulum_cem", "pendulum_cem", 150, 1856.1544, "pendulum_cem", 0, True),
+    ("bicycle_hard_cem", "bicycle_cem", 25, 13301.09, "bicycle_hard_cem", 0,
+     True),
+    ("box_pivoting_cem", "box_pivoting_cem", 20, 786.3928, "box_pivoting_cem",
+     0, False),
+)
+CEM_BEST_RTOL, CEM_INITIAL_RTOL = 0.12, 1e-3
 # K3 and K4 against their plain versions: x, u, K at rtol/atol 1e-3 and
 # the residuals at rtol 1e-2 (the JAX package's whole-loop ADMM check);
 # the chain's xs, us at atol 5e-3 (its whole-chain rollout check).
@@ -203,7 +281,8 @@ HAND_Q0 = {"sphere": np.array([0.0, 0.35, 0.0]),
            "arm_right": np.array([np.pi / 4, np.pi / 4])}
 
 
-def planar_hand_solver(device, T=HAND_T, num_samples=HAND_S):
+def planar_hand_solver(device, T=HAND_T, num_samples=HAND_S,
+                       forward_mode="feedback"):
     """The planar-hand configuration of the JAX package's benchmark and
     example (``bench.py::build_planar_hand_solver``): Δu mode, trust-region
     input boxes of +-0.5h, zero_order_B with decoupled A/B, boxed ADMM at
@@ -234,7 +313,8 @@ def planar_hand_solver(device, T=HAND_T, num_samples=HAND_S):
             num_samples=num_samples, std_u=0.3, std_x=1e-3,
             decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
         admm_iters=12, admm_over_relax=1.6, report_final_cost_with_Q=False,
-        estimation_system=model.estimation_surrogate())
+        estimation_system=model.estimation_surrogate(),
+        forward_mode=forward_mode)
     return IrsMpc(model.system(), params, device=device), model
 
 
@@ -350,6 +430,218 @@ def carrots_solver(device, T=CARROTS_T, num_samples=CARROTS_S,
             decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
         admm_iters=20, report_final_cost_with_Q=False)
     return IrsMpc(model.system(), params, device=device), model
+
+
+def plate_pickup_solver(device, T=PLATE_T, num_samples=PLATE_S,
+                        gradient_mode="zero_order_B", seed=0):
+    """The plate-pickup configuration of the JAX package's example
+    (``examples/plate_pickup.py:17-74``): a gripper (5 dof, two prismatic
+    fingers) over a plate on the ground, a staged reference (squeeze in
+    the first third, then lift 0.3), Δu mode, relative input bounds of
+    +-0.06, zero_order_B with decoupled A/B, std_u 0.1 decayed by
+    1/it**0.8, 30 ADMM sweeps and the 15-iteration estimation surrogate.
+    ``chain_gate`` keeps K4 off its prismatic fingers, as in the JAX
+    package, so its line search runs the plain warm chain."""
+    model = make_plate_pickup(h=0.1)
+    idx_u = model.indices_u_into_x()
+    q0 = {"plate": np.array([0.0, 0.04, 0.0]),
+          "gripper": np.array([0.0, 0.30, 0.0, -0.16, -0.16])}
+    x0 = model.get_x_from_q_dict(q0)
+    T1 = T // 3
+    xd_rows = []
+    for t in range(T + 1):
+        lift = 0.0 if t <= T1 else 0.3 * (t - T1) / max(T - T1, 1)
+        xd_rows.append(model.get_x_from_q_dict({
+            "plate": np.array([0.0, 0.04 + lift, 0.0]),
+            "gripper": np.array([0.0, 0.30 + lift, 0.0, 0.02, 0.02])}))
+    Q_dict = {"plate": np.array([1.0, 50.0, 5.0]),
+              "gripper": np.array([0.1, 0.1, 0.1, 0.5, 0.5])}
+    params = IrsMpcParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"gripper": np.array([1.0, 1.0, 1.0, 0.2,
+                                                        0.2])}),
+        x0=x0, xd_trj=np.stack(xd_rows),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        u_bounds_rel=np.array([-np.ones(5) * 0.06, np.ones(5) * 0.06]),
+        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
+        gradient_mode=gradient_mode, decouple_AB=True,
+        smoothing=SmoothingConfig(
+            num_samples=num_samples, std_u=0.1, std_x=1e-3,
+            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
+        admm_iters=30, report_final_cost_with_Q=False,
+        estimation_system=model.estimation_surrogate(), seed=seed)
+    return IrsMpc(model.system(), params, device=device), model
+
+
+def helix_xd(T):
+    """The quadrotor's rising helix (1.5 cos 0.05i, 1.5 sin 0.05i,
+    0.02i)."""
+    i = np.arange(T + 1)
+    xd = np.zeros((T + 1, 12))
+    xd[:, 0], xd[:, 1], xd[:, 2] = (1.5 * np.cos(0.05 * i),
+                                    1.5 * np.sin(0.05 * i), 0.02 * i)
+    return xd
+
+
+def quadrotor_solver(device, T=QUAD_T, num_samples=QUAD_S):
+    """The quadrotor configuration of the JAX package's example
+    (``examples/quadrotor.py:27-44``, zero-order): h=0.05, the rising
+    helix, Q = diag(10 x6, 0 x6), Qd = 10 diag(10 x6, 1 x6), R = I, hover
+    inputs 2.0, std 0.1 decayed by 1/sqrt(it), no bounds."""
+    params = IrsMpcParams(
+        Q=np.diag([10.] * 6 + [0.] * 6), Qd=10.0 * np.diag([10.] * 6
+                                                         + [1.] * 6),
+        R=np.eye(4), x0=np.zeros(12), xd_trj=helix_xd(T),
+        u_trj_init=np.tile([2.0] * 4, (T, 1)), gradient_mode="zero_order",
+        smoothing=SmoothingConfig(num_samples=num_samples, std_x=0.1,
+                                  std_u=0.1))
+    return IrsMpc(make_quadrotor(0.05), params, device=device)
+
+
+def three_cart_solver(device, T=CART_T, num_samples=CART_S):
+    """The three-cart configuration of the JAX package's example
+    (``examples/three_cart.py:19-38``): h=0.05, carts from (0, 1, 2) to
+    +2 each (the middle one unactuated), Q = 0.01 diag(50, 50, 50, 20,
+    100, 20), Qd = 100 Q, R = 0.01 I, an input box of +-1000, zero-order
+    with the samples projected onto the non-penetration set, std
+    (4.0, 0.5) decayed by 1/it**0.2."""
+    w = np.array([50., 50., 50., 20., 100., 20.])
+    params = IrsMpcParams(
+        Q=0.01 * np.diag(w), Qd=np.diag(w), R=0.01 * np.diag([1., 1.]),
+        x0=np.array([0., 1., 2., 0., 0., 0.]),
+        xd_trj=np.tile([2., 3., 4., 0., 0., 0.], (T + 1, 1)),
+        u_trj_init=np.tile([0.1, -0.1], (T, 1)),
+        u_bounds_abs=np.array([[-1000., -1000.], [1000., 1000.]]),
+        gradient_mode="zero_order",
+        smoothing=SmoothingConfig(num_samples=num_samples, std_x=4.0,
+                                  std_u=0.5,
+                                  decay=lambda it: 1.0 / it ** 0.2))
+    return IrsMpc(make_three_cart(0.05), params, device=device)
+
+
+def pendulum_resolve_params(forward_mode, T=RESOLVE_T):
+    """The pendulum with a binding input box of +-2 in exact mode and 40
+    ADMM sweeps (``tests/test_irs_mpc.py:137-154``)."""
+    return IrsMpcParams(
+        Q=np.diag([1., 1.]), Qd=np.diag([20., 20.]), R=np.diag([1.]),
+        x0=np.zeros(2), xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
+        u_trj_init=np.tile([0.1], (T, 1)),
+        u_bounds_abs=np.array([[-2.0], [2.0]]), gradient_mode="exact",
+        admm_iters=40, forward_mode=forward_mode)
+
+
+# ---------------------------------------------------------------------------
+# The CEM baseline's configurations, those of the JAX package's examples
+# ---------------------------------------------------------------------------
+
+def planar_hand_cem(device, T=30, batch_size=2000, n_elite=100):
+    """``examples/planar_hand_cem.py:14-63``: the planar-hand task of
+    ``planar_hand_solver``, 2000 candidates, 100 elites, initial std 0.25,
+    std floor 0.02, momentum 0.3, AR(1) noise at 0.85, 10 persisted
+    elites, Δu cost."""
+    model = make_planar_hand(h=0.1)
+    idx_u = model.indices_u_into_x()
+    q0 = HAND_Q0
+    x0 = model.get_x_from_q_dict(q0)
+    xd = model.get_x_from_q_dict({
+        "sphere": q0["sphere"] + np.array([0.3, -0.1, 0.5]),
+        "arm_left": q0["arm_left"], "arm_right": q0["arm_right"]})
+    Q_dict = {"sphere": np.array([1e-3, 1e-3, 10.0]),
+              "arm_left": np.array([1e-3, 1e-3]),
+              "arm_right": np.array([1e-3, 1e-3])}
+    params = CemParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"arm_left": 5 * np.ones(2),
+                                   "arm_right": 5 * np.ones(2)}),
+        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        n_elite=n_elite, batch_size=batch_size,
+        initial_std=np.ones(4) * 0.25, std_floor=np.float32(0.02),
+        momentum=0.3, noise_beta=0.85, elite_keep=min(10, n_elite),
+        indices_u_into_x=idx_u, report_final_cost_with_Q=False)
+    return CrossEntropyMethod(model.system(), params, device=device), model
+
+
+def box_pushing_cem(device, T=60, batch_size=100, n_elite=5):
+    """``examples/box_pushing_cem.py:16-43``: the box-pushing task of
+    ``box_pushing_solver``, 100 candidates, 5 elites, initial std 0.2,
+    Δu cost."""
+    model = make_box_pushing(h=0.1)
+    idx_u = model.indices_u_into_x()
+    q0 = {"box": np.array([0.0, 0.5, 0.0]), "hand": np.array([0.0, -0.2])}
+    x0 = model.get_x_from_q_dict(q0)
+    xd = model.get_x_from_q_dict({
+        "box": q0["box"] + np.array([0.5, 0.5, -np.pi / 4]),
+        "hand": q0["hand"]})
+    Q_dict = {"box": np.array([3.0, 3.0, 1.2]), "hand": np.zeros(2)}
+    params = CemParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 0 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"hand": 1e1 * np.ones(2)}),
+        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        n_elite=n_elite, batch_size=batch_size,
+        initial_std=np.ones(2) * 0.2, indices_u_into_x=idx_u,
+        report_final_cost_with_Q=False)
+    return CrossEntropyMethod(model.system(), params, device=device), model
+
+
+def box_pivoting_cem(device, T=40, batch_size=100, n_elite=5):
+    """``examples/box_pivoting.py:63-102``: the box-pivoting task of
+    ``box_pivoting_solver``, 100 candidates, 5 elites, initial std 0.05,
+    Δu cost, on the model WITHOUT the canonical warm duals that the iRS
+    factory opts into (the JAX example's choice for its CEM)."""
+    model = dataclasses.replace(make_box_pivoting(h=0.05),
+                                canon_warm_duals=False)
+    idx_u = model.indices_u_into_x()
+    q0 = {"box": np.array([0.45, 0.5, 0.0]), "hand": np.array([-0.17, 0.8])}
+    x0 = model.get_x_from_q_dict(q0)
+    xd = model.get_x_from_q_dict({"box": np.array([0.767, 0.683,
+                                                   -np.pi / 6]),
+                                  "hand": q0["hand"]})
+    Q_dict = {"box": np.array([1.0, 1.0, 20.0]),
+              "hand": np.array([1e-4, 1e-4])}
+    params = CemParams(
+        Q=model.get_Q_from_Q_dict(Q_dict),
+        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
+        R=model.get_R_from_R_dict({"hand": np.array([0.5, 0.5])}),
+        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        n_elite=n_elite, batch_size=batch_size,
+        initial_std=np.ones(2) * 0.05, indices_u_into_x=idx_u,
+        report_final_cost_with_Q=False)
+    return CrossEntropyMethod(model.system(), params, device=device), model
+
+
+def pendulum_cem(device, T=200, batch_size=8000, n_elite=80):
+    """``examples/pendulum.py:49-55``: the swing-up of the pendulum slice,
+    8000 candidates, 80 elites, initial std 1, 10 persisted elites, noise
+    interpolated from 40 knots."""
+    params = CemParams(
+        Q=np.diag([1., 1.]), Qd=np.diag([20., 20.]), R=np.diag([1.]),
+        x0=np.zeros(2), xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
+        u_trj_init=np.tile([0.1], (T, 1)), n_elite=n_elite,
+        batch_size=batch_size, initial_std=np.array([1.0]), elite_keep=10,
+        noise_knots=40)
+    return CrossEntropyMethod(make_pendulum(0.05), params, device=device)
+
+
+def bicycle_cem(device, hard=True, T=100, batch_size=100, n_elite=10):
+    """``examples/bicycle.py:42-59``: the bicycle to a goal ahead-left
+    (easy) or behind the car (hard), 100 candidates, 10 elites, initial
+    std (1, 1)."""
+    xd = (np.array([-3., -1., -np.pi / 2, 0., 0.]) if hard
+          else np.array([3., 1., np.pi / 2, 0., 0.]))
+    params = CemParams(
+        Q=np.diag([5., 5., 3., 0.1, 0.1]),
+        Qd=np.diag([50., 50., 30., 1., 1.]), R=np.diag([1., 0.1]),
+        x0=np.zeros(5), xd_trj=np.tile(xd, (T + 1, 1)),
+        u_trj_init=np.tile([0.1, 0.0], (T, 1)),
+        initial_std=np.array([1.0, 1.0]), batch_size=batch_size,
+        n_elite=n_elite)
+    return CrossEntropyMethod(make_bicycle(0.1), params, device=device)
 
 
 def circle_pair_model(geom, quasistatic):
@@ -507,9 +799,22 @@ def capture(module, name, calls):
         setattr(module, name, real)
 
 
-def first_iteration_inputs(solver_fn=planar_hand_solver):
+def first_calls(solver, module, name, count, label):
+    """The arguments of the ``count`` calls of ``module.name`` that the
+    first iteration of ``solver`` makes on the card."""
+    calls = []
+    with capture(module, name, calls):
+        solver.iterate(1, verbose=False)
+    torch.cuda.synchronize()
+    check(len(calls) == count, f"{label}: {len(calls)} calls of {name} in "
+                               f"the first iteration, expected {count}")
+    return calls
+
+
+def first_iteration_inputs(solver_fn=planar_hand_solver, rollouts=1):
     """The arguments the first iteration of a contact slice (by default the
-    planar hand's) hands K2 (its two calls), K3 and K4, recorded from a
+    planar hand's) hands K2 (its two calls), K3 and K4 (None for a slice
+    whose line search does not run K4: ``rollouts=0``), recorded from a
     solver run on the card."""
     k2, k3, k4 = [], [], []
     solver, _ = solver_fn(DEVICE)
@@ -518,10 +823,10 @@ def first_iteration_inputs(solver_fn=planar_hand_solver):
             capture(cuda_rollout, "linesearch_rollout_cuda", k4):
         solver.iterate(1, verbose=False)
     torch.cuda.synchronize()
-    check(len(k2) == 2 and len(k3) == 1 and len(k4) == 1,
+    check(len(k2) == 2 and len(k3) == 1 and len(k4) == rollouts,
           f"first iteration: {len(k2)} QP, {len(k3)} ADMM and {len(k4)} "
           f"rollout calls")
-    return k2, k3[0], k4[0]
+    return k2, k3[0], k4[0] if rollouts else None
 
 
 def qp_gaps(qps, iters, init=None, init_plain=None):
@@ -745,8 +1050,15 @@ def k3_row(shape, args, kw, card, plain_reps=5):
                   tensor_bytes(args) + tensor_bytes(kw) + tensor_bytes(out))
 
 
-def k4_row(shape, args, card, plain_reps=3):
-    """K4 against the plain chain: xs and us within CHAIN_ATOL."""
+def k4_row(shape, args, card, plain_reps=3, float64_rule=False):
+    """K4 against the plain chain: xs and us within CHAIN_ATOL.  With
+    ``float64_rule`` (open-loop CEM populations, whose large first input
+    jumps make the first warm knot's PDIP stall at a point that rounding
+    decides), lanes past CHAIN_ATOL are allowed where both float32 chains
+    are held against the float64 chain instead, the rule of ``k2_row``: at
+    p90, p99 and the worst lane the kernel within 2.5x of the plain chain's
+    error, and its lanes off the float64 chain by CHAIN_ATOL or more at
+    most 2.5x as many as the plain chain's (at least 1)."""
     model = args[0]
     xs, us = cuda_rollout.linesearch_rollout_cuda(*args)
     xr, ur = rollout.linesearch_rollout_plain(*args)
@@ -756,8 +1068,31 @@ def k4_row(shape, args, card, plain_reps=3):
           and bool(torch.isfinite(xs).all() and torch.isfinite(us).all()),
           f"K4 {shape}: bad trajectories")
     err = max((xs - xr).abs().max().item(), (us - ur).abs().max().item())
-    check(err < CHAIN_ATOL,
-          f"K4 {shape}: disagrees with the plain chain: {err:.3e}")
+    if err >= CHAIN_ATOL and float64_rule:
+        x64, _ = rollout.linesearch_rollout_plain(*(
+            a.double() if torch.is_tensor(a) else a for a in args))
+        lane_k = (xs.double() - x64).abs().amax((1, 2))
+        lane_p = (xr.double() - x64).abs().amax((1, 2))
+        apart = int(((xs - xr).abs().amax((1, 2)) >= CHAIN_ATOL).sum())
+        off_k = int((lane_k >= CHAIN_ATOL).sum())
+        off_p = int((lane_p >= CHAIN_ATOL).sum())
+        print(f"[K4] {shape}: {apart} of {A} lanes apart by >= {CHAIN_ATOL} "
+              f"(max {err:.3e}); lanes off float64 by >= {CHAIN_ATOL}: "
+              f"kernel {off_k}, plain {off_p}")
+        check(off_k <= max(2.5 * off_p, 1),
+              f"K4 {shape}: {off_k} lanes off the float64 chain, the plain "
+              f"chain {off_p}")
+        for pct in (0.9, 0.99, 1.0):
+            ek = torch.quantile(lane_k, pct).item()
+            ep = torch.quantile(lane_p, pct).item()
+            print(f"[K4] {shape}: p{pct * 100:.0f} err vs float64: kernel "
+                  f"{ek:.3e}, plain {ep:.3e}")
+            check(ek <= max(2.5 * ep, 1e-6),
+                  f"K4 {shape}: less accurate than the plain chain at "
+                  f"p{pct * 100:.0f}: {ek:.3e} vs {ep:.3e}")
+    else:
+        check(err < CHAIN_ATOL,
+              f"K4 {shape}: disagrees with the plain chain: {err:.3e}")
     ms = median_ms(lambda: cuda_rollout.linesearch_rollout_cuda(*args), 20)
     plain_ms = median_ms(lambda: rollout.linesearch_rollout_plain(*args),
                          plain_reps)
@@ -785,11 +1120,11 @@ def admm_rows(name, k3_args, k3_kw, card):
                    f"initial solve", prob, card)]
 
 
-def slice_kernel_rows(name, solver_fn, T, S, card):
-    """K2 (both calls), K3, K1 and K4 on what the first iteration of the
-    slice ``name`` hands them."""
-    k2_calls, (k3_args, k3_kw), (k4_args, _) = first_iteration_inputs(
-        solver_fn)
+def slice_kernel_rows(name, solver_fn, T, S, card, rollouts=1):
+    """K2 (both calls), K3, K1 and K4 (unless ``rollouts=0``) on what the
+    first iteration of the slice ``name`` hands them."""
+    k2_calls, (k3_args, k3_kw), k4_call = first_iteration_inputs(
+        solver_fn, rollouts)
     sizes = [(args[1].shape[0], args[4]) for args, _ in k2_calls]
     check(sizes == [(T, 30), (T * S, 15)],
           f"K2: {name} main-path (QPs, iterations) {sizes}, expected the "
@@ -804,6 +1139,9 @@ def slice_kernel_rows(name, solver_fn, T, S, card):
         rows.append(k2_row(f"{name} {B} QPs x {args[4]} it, n={n} "
                            f"m={args[3].shape[1]}", args[:4], args[4], card))
     rows += admm_rows(name, k3_args, k3_kw, card)
+    if not rollouts:
+        return rows, None
+    k4_args = k4_call[0]
     model = k4_args[0]
     A, T4, _ = k4_args[6].shape
     rows.append(k4_row(f"{name} {A} lanes x T={T4}, nq={model.nq}, "
@@ -843,11 +1181,57 @@ def drive_slice(label, solver, iterations, per_it, card, rollouts):
                    and torch.isfinite(solver.u_trj).all()),
           f"{label}: final trajectories wrong in shape or not finite")
     walls = [st.wall_time for st in solver.stats_lst]
-    dt = statistics.median(walls[1:])
+    dt = statistics.median(walls[1:] or walls)
     print(f"[{label}] first iteration {walls[0] * 1e3:.2f} ms; then median "
           f"{dt * 1e3:.3f} ms/iteration, {rollouts / dt:.1f} rollouts/s; "
           f"best {solver.cost_best:.4f} ({card})")
     return launches, dt * 1e3
+
+
+def drive_cem(label, solver, iterations, rollouts_per_it, card):
+    """Run ``iterations`` CEM iterations on the card with every launch count
+    set to 0 just before and read just after; check the K4 launches per
+    iteration (``rollouts_per_it``: the population and the refit mean, or
+    none), and none of K1-K3, and that the trajectories stay on the card,
+    finite and of their shapes.  Returns the launches and the median ms
+    per iteration after the first (host clock; each iteration ends in the
+    host read of its cost)."""
+    for mod in KERNELS:
+        mod.LAUNCHES = 0
+    walls = []
+    for _ in range(iterations):
+        t0 = time.perf_counter()
+        solver.iterate(1, verbose=False)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in KERNELS}
+    print(f"[{label}] cost curve: "
+          + " ".join(f"{c:.4f}" for c in solver.cost_lst))
+    print(f"[{label}] launches in {iterations} iterations: {launches}")
+    want = {"cuda_rollout": rollouts_per_it * iterations, "cuda_riccati": 0,
+            "cuda_qp": 0, "cuda_admm": 0}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    T, n, m = solver.T, solver.system.dim_x, solver.system.dim_u
+    check(all(_nvcc.on_card(t) for t in [solver.x_trj, solver.u_trj,
+                                         solver.std_trj, solver.x_trj_best]),
+          f"{label}: a solver tensor is not on CUDA")
+    check(tuple(solver.x_trj.shape) == (T + 1, n)
+          and tuple(solver.u_trj.shape) == (T, m)
+          and bool(torch.isfinite(solver.x_trj).all()
+                   and torch.isfinite(solver.u_trj).all()),
+          f"{label}: final trajectories wrong in shape or not finite")
+    dt = statistics.median(walls[1:] or walls)
+    B = solver.params.batch_size
+    print(f"[{label}] first iteration {walls[0] * 1e3:.2f} ms; then median "
+          f"{dt * 1e3:.3f} ms/iteration, {B * T / dt:.1f} rollout knots/s "
+          f"({B} candidates x T={T}); best {solver.cost_best:.4f} ({card})")
+    return launches, dt * 1e3
+
+
+def csv_curve(name):
+    """The committed cost curve ``examples/analysis/<name>.csv``."""
+    return np.loadtxt(ANALYSIS / f"{name}.csv", ndmin=1)
 
 
 def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
@@ -954,7 +1338,175 @@ def contact_models():
             "circle_pair": circle_pair_model(geometry, quasistatic)}
 
 
+class Lap:
+    """Prints each phase's wall seconds on its own line."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase):
+        now = time.perf_counter()
+        print(f"[phase {phase}] wall {now - self.t:.2f} s")
+        self.t = now
+
+
+def cem_population_row(label, builder, card):
+    """K4 against its plain chain on the first population of a contact
+    CEM (every candidate an open-loop lane, K = 0), recorded from the
+    solver's first iteration on the card."""
+    cem, model = builder(DEVICE)
+    # Two calls: the population's and the refit mean's.
+    args = first_calls(cem, cuda_rollout, "linesearch_rollout_cuda", 2,
+                       label)[0][0]
+    A, T, _ = args[6].shape
+    check(A == cem.params.batch_size and not args[3].any(),
+          f"{label}: the population call is not {cem.params.batch_size} "
+          f"open-loop lanes")
+    return k4_row(f"{label} population {A} lanes x T={T}, nq={model.nq}, "
+                  f"{model.n_constraint_rows()} rows, K = 0", args, card,
+                  plain_reps=2, float64_rule=True)
+
+
+def phase_cem(card, rows, paths):
+    """Phase 14: K4 on the first population of the two contact CEM
+    searches it takes (rows added to ``rows``), then every CEM
+    configuration of ``CEM_CASES`` on the card (launches into ``paths``)."""
+    rows.append(cem_population_row("planar_hand CEM", planar_hand_cem, card))
+    rows.append(cem_population_row("box_pushing CEM", box_pushing_cem, card))
+    for label, builder, iters, initial, csv, per_it, one_sided in CEM_CASES:
+        out = globals()[builder](DEVICE)
+        cem = out[0] if isinstance(out, tuple) else out
+        paths[label], _ = drive_cem(label, cem, iters, per_it, card)
+        curve = csv_curve(csv)
+        print(f"[{label}] initial {cem.cost_lst[0]:.4f} (float32 {initial}, "
+              f"committed curve {curve[0]:.4f}); best {cem.cost_best:.4f} "
+              f"(committed curve's last {curve[-1]:.4f}, min "
+              f"{curve.min():.4f})")
+        check(abs(cem.cost_lst[0] - initial) <= CEM_INITIAL_RTOL * initial,
+              f"{label}: initial cost {cem.cost_lst[0]} is not {initial} "
+              f"within 0.1%")
+        best_max = ((1 + CEM_BEST_RTOL) * curve[-1] if one_sided
+                    else cem.cost_lst[0])
+        check(np.isfinite(cem.cost_best) and cem.cost_best < best_max,
+              f"{label}: best cost {cem.cost_best} is not below {best_max}")
+
+
+def phase_resolve(card, paths):
+    """Phase 15: K3 and K1 on a masked knot problem of the planar hand's
+    and of the pendulum's first resolve iteration (returns their rows),
+    then resolve mode on the pendulum with a binding box (against the
+    feedback mode on the same problem) and on the planar hand."""
+    rows = []
+    for label, solver, T_r in (
+            ("planar_hand resolve",
+             planar_hand_solver(DEVICE, forward_mode="resolve")[0], HAND_T),
+            ("pendulum resolve",
+             IrsMpc(make_pendulum(0.05), pendulum_resolve_params("resolve"),
+                    device=DEVICE), RESOLVE_T)):
+        calls = first_calls(solver, cuda_admm, "solve_boxed_tvlqr_cuda", T_r,
+                            label)
+        rows += admm_rows(f"{label} knot {T_r // 2}", *calls[T_r // 2], card)
+    per_knot = {"cuda_riccati": RESOLVE_T, "cuda_admm": RESOLVE_T,
+                "cuda_qp": 0, "cuda_rollout": 0}
+    rs = IrsMpc(make_pendulum(0.05), pendulum_resolve_params("resolve"),
+                device=DEVICE)
+    paths["pendulum_resolve"], _ = drive_slice(
+        "pendulum resolve", rs, RESOLVE_ITERATIONS, per_knot, card,
+        RESOLVE_T)
+    fb = IrsMpc(make_pendulum(0.05), pendulum_resolve_params("feedback"),
+                device=DEVICE)
+    drive_slice("pendulum feedback, the same problem", fb,
+                RESOLVE_FEEDBACK_ITERATIONS,
+                {"cuda_riccati": 1, "cuda_admm": 1}, card, RESOLVE_T)
+    u_max = rs.u_trj_lst[-1].abs().max().item()
+    gap = abs(rs.cost_best - fb.cost_best) / fb.cost_best
+    print(f"[pendulum resolve] max |u| {u_max:.6f} (box {RESOLVE_U_MAX}); "
+          f"best {rs.cost_best:.4f} against the feedback mode's "
+          f"{fb.cost_best:.4f}: {gap:.4f} apart")
+    check(u_max <= RESOLVE_U_MAX + 1e-3, f"resolve: |u| {u_max} past the box")
+    check(gap < RESOLVE_BEST_RTOL,
+          f"resolve: best {rs.cost_best} is {gap:.3f} from the feedback "
+          f"mode's {fb.cost_best}")
+    solver, _ = planar_hand_solver(DEVICE, forward_mode="resolve")
+    paths["planar_hand_resolve"], _ = drive_slice(
+        "planar_hand resolve", solver, HAND_RESOLVE_ITERATIONS,
+        {"cuda_qp": 2, "cuda_riccati": HAND_T, "cuda_admm": HAND_T,
+         "cuda_rollout": 0}, card, HAND_T * HAND_S)
+    check(abs(solver.cost_lst[0] - HAND_INITIAL) <= 1e-3 * HAND_INITIAL,
+          f"planar_hand resolve: initial cost {solver.cost_lst[0]}")
+    check(bool(np.isfinite(solver.cost_lst).all()),
+          f"planar_hand resolve: cost curve {solver.cost_lst}")
+    return rows
+
+
+def phase_plate_pickup(card, paths):
+    """Phase 16: K2 (both calls), K3 and K1 on plate pickup's first
+    iteration (returns their rows), its golden with exact launches, and
+    one first_order iteration, which reaches K2 through the surrogate's
+    batched step."""
+    rows = slice_kernel_rows("plate_pickup", plate_pickup_solver, PLATE_T,
+                             PLATE_S, card, rollouts=0)[0]
+    bests = []
+    for seed in PLATE_SEEDS:
+        solver, _ = plate_pickup_solver(DEVICE, seed=seed)
+        check(solver.system.ls_rollout_fn is None,
+              "plate_pickup: chain_gate should keep K4 off its fingers")
+        launches, _ = drive_slice(
+            f"plate_pickup seed {seed}", solver, PLATE_ITERATIONS,
+            {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1,
+             "cuda_rollout": 0}, card, PLATE_T * PLATE_S)
+        paths.setdefault("plate_pickup", launches)
+        check_golden(f"plate_pickup seed {seed}", solver.cost_lst[0],
+                     solver.cost_best, PLATE_INITIAL, solver.cost_lst[0])
+        bests.append(solver.cost_best)
+    median = statistics.median(bests)
+    print(f"[plate_pickup] best over seeds 0-{PLATE_SEEDS[-1]}: "
+          + " ".join(f"{b:.4f}" for b in bests)
+          + f"; median {median:.4f} (golden {PLATE_BEST} +- 12 %)")
+    check(abs(median - PLATE_BEST) <= BOX_BEST_RTOL * PLATE_BEST,
+          f"plate_pickup: median best {median} is not {PLATE_BEST} within "
+          f"12%")
+    solver, _ = plate_pickup_solver(DEVICE, gradient_mode="first_order")
+    paths["plate_pickup_first_order"], _ = drive_slice(
+        "plate_pickup first_order", solver, 1,
+        {"cuda_qp": 1, "cuda_riccati": 1, "cuda_admm": 1, "cuda_rollout": 0},
+        card, PLATE_T * PLATE_S)
+    return rows
+
+
+def phase_analytic(card, paths):
+    """Phase 17: K1 on the quadrotor's first-iteration problem, K3 and K1
+    on the three carts' (returns their rows), then both iRS examples on the
+    card, held to their committed curves."""
+    call = first_calls(quadrotor_solver(DEVICE), cuda_riccati,
+                       "lqr_solve_cuda", 1, "quadrotor")[0]
+    prob = call[0][0]
+    Tq, n, m = prob.B.shape
+    rows = [k1_row(f"quadrotor T={Tq} n={n} m={m}, first iteration", prob,
+                   card)]
+    call = first_calls(three_cart_solver(DEVICE), cuda_admm,
+                       "solve_boxed_tvlqr_cuda", 1, "three_cart")[0]
+    rows += admm_rows("three_cart", *call, card)
+    for label, solver, iters, initial, csv, per in (
+            ("quadrotor", quadrotor_solver(DEVICE), QUAD_ITERATIONS,
+             QUAD_INITIAL, "quadrotor_zero_order", {"cuda_admm": 0}),
+            ("three_cart", three_cart_solver(DEVICE), CART_ITERATIONS,
+             CART_INITIAL, "three_cart_zero_order", {"cuda_admm": 1})):
+        paths[label], _ = drive_slice(
+            label, solver, iters,
+            dict(per, cuda_riccati=1, cuda_qp=0, cuda_rollout=0), card,
+            solver.T * solver.params.smoothing.num_samples)
+        target = csv_curve(csv).min()
+        print(f"[{label}] best {solver.cost_best:.4f} against the committed "
+              f"curve's minimum {target:.4f}")
+        check_golden(label, solver.cost_lst[0], solver.cost_best, initial,
+                     (1 + BOX_BEST_RTOL) * target,
+                     (1 - BOX_BEST_RTOL) * target)
+    return rows
+
+
 def main():
+    lap = Lap()
     # -- Phase 0: environment ------------------------------------------------
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}")
@@ -967,6 +1519,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}  (torch: {kind}, {torch.cuda.device_count()} "
           f"device(s))")
+    lap(0)
 
     # -- Phase 1: build K1-K4, one nvcc each, all at once --------------------
     t0 = time.perf_counter()
@@ -978,6 +1531,7 @@ def main():
             if ("registers" in line or "smem" in line or "spill" in line
                     or "Compiling entry" in line):
                 print(f"[build]   {line.strip()}")
+    lap(1)
 
     # -- Phase 2: K1 against the plain loop on the card ----------------------
     pend, pend_du = pendulum_problems()
@@ -987,6 +1541,7 @@ def main():
         ("delta-u T=200 n=3 m=1 (N!=0)", pend_du),
         ("delta-u T=4 n=20 m=5 (N!=0, wide block)",
          delta_u_problem(T=4, n=15, m=5, seed=3, spread=0.03)[0]))]
+    lap(2)
 
     # -- Phase 3: the pendulum slice on the card -----------------------------
     params = IrsMpcParams(
@@ -1006,6 +1561,7 @@ def main():
           f"final cost {solver.cost} > {FINAL_COST_MAX}")
     check(solver.cost_best <= FINAL_COST_MAX,
           f"best cost {solver.cost_best} > {FINAL_COST_MAX}")
+    lap(3)
 
     # -- Phases 4-6: K2, K3, K1 and K4 on the planar hand's first iteration,
     # K2 on 2048 contact QPs and K3 on every bound kind -----------------------
@@ -1082,6 +1638,7 @@ def main():
         f"{cuda_admm.placement(Tb, n_b, m_b)}", (prob_b, bounds, z0, y0),
         dict(n_phys=n_b, idx_w=None, rho=1.0, iters=12, over_relax=1.6),
         card, plain_reps=2))
+    lap("4-6")
 
     # -- Phase 7: the planar-hand slice on the card --------------------------
     per_it = {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1,
@@ -1092,6 +1649,7 @@ def main():
     check_golden("planar hand", solver.cost_lst[0], solver.cost_best,
                  HAND_INITIAL, (1 + HAND_BEST_RTOL) * HAND_BEST,
                  (1 - HAND_BEST_RTOL) * HAND_BEST)
+    lap(7)
 
     # -- Phase 8: the box slices' kernels on their first iteration -----------
     box_k4 = {}
@@ -1100,6 +1658,7 @@ def main():
                           BOX_PIVOTING_T)):
         new_rows, box_k4[name] = slice_kernel_rows(name, fn, Tb, BOX_S, card)
         rows += new_rows
+    lap(8)
 
     # -- Phase 9: K4 on every pair kind, in both orders ----------------------
     # The slices' first-iteration line searches again with every pair's
@@ -1121,6 +1680,7 @@ def main():
                 shape = (f"{name} ({order}) 3 lanes x T=10, nq={m.nq}, "
                          f"{m.n_constraint_rows()} rows, built inputs")
             rows.append(k4_row(shape, args, card))
+    lap(9)
 
     # -- Phase 10: the box-pushing slice on the card -------------------------
     solver, _ = box_pushing_solver(DEVICE)
@@ -1130,6 +1690,7 @@ def main():
     check_golden("box_pushing", solver.cost_lst[0], solver.cost_best,
                  BOX_PUSHING_INITIAL, (1 + BOX_BEST_RTOL) * BOX_PUSHING_BEST,
                  (1 - BOX_BEST_RTOL) * BOX_PUSHING_BEST)
+    lap(10)
 
     # -- Phase 11: the box-pivoting slice on the card, and its scan chain ----
     solver, _ = box_pivoting_solver(DEVICE)
@@ -1147,12 +1708,14 @@ def main():
                 dict(per_it, cuda_rollout=0), card, BOX_PIVOTING_T * BOX_S)
     check(scan.cost_lst[0] == solver.cost_lst[0],
           "box_pivoting: the scan chain starts from another cost")
+    lap(11)
 
     # -- Phase 12: where a box-pushing iteration's time goes -----------------
     solver, _ = box_pushing_solver(DEVICE)
     solver.iterate(1, verbose=False)
     torch.cuda.reset_peak_memory_stats()
     profile_iteration(solver, 3, card)
+    lap(12)
 
     # -- Phase 13: carrots: K3 and K1 at its shape, then its path -----------
     k3_calls = []
@@ -1171,6 +1734,17 @@ def main():
     check_golden("carrots", solver.cost_lst[0], solver.cost_best,
                  CARROTS_INITIAL, (1 + BOX_BEST_RTOL) * CARROTS_BEST,
                  (1 - BOX_BEST_RTOL) * CARROTS_BEST)
+
+    lap(13)
+
+    phase_cem(card, rows, paths)
+    lap(14)
+    rows += phase_resolve(card, paths)
+    lap(15)
+    rows += phase_plate_pickup(card, paths)
+    lap(16)
+    rows += phase_analytic(card, paths)
+    lap(17)
 
     entries = []
     for kernel, name, source, replaces in (

@@ -17,19 +17,25 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .models.base import System  # noqa: E402
+from .models.bicycle import make_bicycle  # noqa: E402
 from .models.contact.systems import (make_box_pivoting,  # noqa: E402
                                      make_box_pushing, make_carrots,
                                      make_planar_hand, make_plate_pickup)
 from .models.pendulum import make_pendulum  # noqa: E402
+from .models.quadrotor import make_quadrotor  # noqa: E402
+from .models.three_cart import make_three_cart  # noqa: E402
 from .ops.admm import BoxBounds, solve_boxed_tvlqr  # noqa: E402
 from .ops.estimators import SmoothingConfig, estimate_tv_matrices  # noqa: E402
 from .ops import lqr  # noqa: E402
+from .solvers.cem import CemParams, CrossEntropyMethod  # noqa: E402
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats  # noqa: E402
 
 __all__ = [
-    "System", "make_pendulum", "make_planar_hand", "make_box_pushing",
+    "System", "make_pendulum", "make_bicycle", "make_quadrotor",
+    "make_three_cart", "make_planar_hand", "make_box_pushing",
     "make_box_pivoting", "make_plate_pickup", "make_carrots",
     "SmoothingConfig",
     "estimate_tv_matrices", "lqr", "BoxBounds", "solve_boxed_tvlqr",
-    "IrsMpc", "IrsMpcParams", "IterationStats",
+    "IrsMpc", "IrsMpcParams", "IterationStats", "CemParams",
+    "CrossEntropyMethod",
 ]

@@ -13,11 +13,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.bicycle import make_bicycle
 from .models.contact import geometry as geom
 from .models.contact.quasistatic import (ContactPair, ModelInstance,
                                          QuasistaticModel)
+from .models.pendulum import make_pendulum
+from .models.quadrotor import make_quadrotor
+from .models.three_cart import make_three_cart
 from .ops.estimators import SmoothingConfig, inv_sqrt_decay
 from .ops.lqr import LqrProblem
+from .solvers.cem import CemParams
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats
 
 
@@ -100,6 +105,41 @@ def model_from_jax(m) -> QuasistaticModel:
         gravity=_plain(m.gravity), qp_iters=int(m.qp_iters),
         qp_iters_ws=int(m.qp_iters_ws), contact_model=str(m.contact_model),
         canon_warm_duals=bool(m.canon_warm_duals))
+
+
+_ANALYTIC = {"pendulum": make_pendulum, "bicycle": make_bicycle,
+             "quadrotor": make_quadrotor, "three_cart": make_three_cart}
+
+
+def system_from_jax(s):
+    """The port's analytic system for a JAX one, by its name, with the
+    constructor arguments of the JAX factory: its ``h``, and the cart
+    width ``d`` of the three-cart model, read from the closure of its
+    step.  Raises on a name the port has no factory for (contact models
+    cross through ``model_from_jax``)."""
+    if s.name not in _ANALYTIC:
+        raise ValueError(f"system_from_jax: no analytic factory "
+                         f"{s.name!r}; contact models cross through "
+                         f"model_from_jax")
+    step = s.step
+    free = dict(zip(step.__code__.co_freevars,
+                    (c.cell_contents for c in step.__closure__ or ())))
+    kw = {"d": float(free["d"])} if s.name == "three_cart" else {}
+    return _ANALYTIC[s.name](h=float(s.h), **kw)
+
+
+def cem_params_from_jax(p) -> CemParams:
+    """A torch ``CemParams`` from a JAX one: arrays as numpy copies, the
+    solver puts them on its device."""
+    def arr(v):
+        return None if v is None else np.array(v)
+
+    return CemParams(**{
+        f.name: (arr(getattr(p, f.name)) if f.name in (
+            "Q", "Qd", "R", "x0", "xd_trj", "u_trj_init", "initial_std",
+            "indices_u_into_x", "u_bounds_abs", "std_floor")
+            else _plain(getattr(p, f.name)))
+        for f in dataclasses.fields(CemParams)})
 
 
 def params_from_jax(p, device="cpu", decay=None,

@@ -51,9 +51,16 @@ class System:
     # which the solver takes for CUDA tensors (kernel K4 for contact
     # models).  Must match the solver's plain rollout loop.
     ls_rollout_fn: Optional[Callable] = None
+    # Hand-written batched step, (B,n), (B,m) -> (B,n) (kernel K2 for the
+    # contact models' estimation surrogate on CUDA); must agree with
+    # ``step`` to solver tolerance.  Without one the batched step is
+    # ``step`` itself.
+    step_batch_fn: Optional[Callable] = None
 
     def step_batch(self, x: Tensor, u: Tensor) -> Tensor:
         """Batched dynamics: (B,n), (B,m) -> (B,n)."""
+        if self.step_batch_fn is not None:
+            return self.step_batch_fn(x, u)
         return self.step(x, u)
 
     def jacobian_xu(self, x: Tensor, u: Tensor) -> Tensor:
@@ -73,15 +80,32 @@ class System:
         return torch.func.vmap(self.jacobian_xu)(x, u)
 
     def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
-        """Open-loop rollout: (n,), (T,m) -> the (T+1,n) state trajectory,
-        through the warm-started chain when the system has one."""
-        xs = [x0]
+        """Open-loop rollout: (n,), (..., T, m) -> the (..., T+1, n) state
+        trajectories, through the warm-started chain when the system has
+        one.  Leading dims of ``u_trj`` are independent chains, each from
+        ``x0``, all stepped together."""
+        x = x0.expand(u_trj.shape[:-2] + x0.shape)
+        xs = [x]
         if self.step_ws_fn is not None:
             ws = self.ws_init_fn(x0.device)
-            for u in u_trj:
-                x, ws = self.step_ws_fn(xs[-1], u, ws)
+            for t in range(u_trj.shape[-2]):
+                x, ws = self.step_ws_fn(x, u_trj[..., t, :], ws)
                 xs.append(x)
         else:
-            for u in u_trj:
-                xs.append(self.step(xs[-1], u))
-        return torch.stack(xs)
+            for t in range(u_trj.shape[-2]):
+                x = self.step(x, u_trj[..., t, :])
+                xs.append(x)
+        return torch.stack(xs, dim=-2)
+
+    def rollout_batch(self, x0: Tensor, u_trj_b: Tensor) -> Tensor:
+        """Population rollout: (n,), (B, T, m) -> (B, T+1, n), through
+        ``step_batch_fn`` when the system has one (cold batched steps),
+        else through the warm chains of ``rollout``, all B at once."""
+        if self.step_batch_fn is None:
+            return self.rollout(x0, u_trj_b)
+        x = x0.expand(u_trj_b.shape[0], -1)
+        xs = [x]
+        for t in range(u_trj_b.shape[1]):
+            x = self.step_batch_fn(x, u_trj_b[:, t])
+            xs.append(x)
+        return torch.stack(xs, dim=1)

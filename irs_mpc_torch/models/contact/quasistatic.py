@@ -253,10 +253,21 @@ class QuasistaticModel:
             lam_c = self.canon_duals(lam_c)
         return x + dq, (dq_c, lam_c)
 
-    def system(self) -> System:
+    def _step_batch_kernel(self, x: Tensor, u: Tensor) -> Tensor:
+        """Batched cold step (B,nq), (B,m) -> (B,nq) as one batched solve
+        at ``qp_iters``: K2 on CUDA tensors, the plain PDIP on CPU ones."""
+        from .cuda_qp import solve_qp_batched
+        P, b = self._hessian_and_bias(x, u)
+        C, d = self._constraint_rows(x)
+        return x + solve_qp_batched(P, b, C, d, self.qp_iters)
+
+    def system(self, batch_kernel: bool = False) -> System:
         """The model as the framework's ``System``, with the warm chain and,
         where ``rollout.supports_model`` and ``rollout.chain_gate`` admit
-        the model, the whole-chain line-search rollout (K4 on CUDA)."""
+        the model, the whole-chain line-search rollout (K4 on CUDA).
+        ``batch_kernel`` routes ``step_batch`` through one batched solve
+        (K2 on CUDA); single steps and Jacobians keep the differentiable
+        ``step``."""
         use_ws = self.qp_iters_ws > 0 and bool(self.pairs)
         ls_rollout_fn = None
         if use_ws:
@@ -269,7 +280,10 @@ class QuasistaticModel:
                       h=self.h, step=self.step,
                       step_ws_fn=self.step_ws if use_ws else None,
                       ws_init_fn=self.ws_init if use_ws else None,
-                      ls_rollout_fn=ls_rollout_fn)
+                      ls_rollout_fn=ls_rollout_fn,
+                      step_batch_fn=(self._step_batch_kernel
+                                     if batch_kernel and self.pairs
+                                     else None))
 
     def _est_sweep_fn(self, qp_iters_samples: int):
         """Fused estimation sweep (``System.est_sweep_fn``): the nominal
@@ -309,10 +323,11 @@ class QuasistaticModel:
 
     def estimation_surrogate(self, qp_iters: int = 15) -> System:
         """Cheaper system for the Monte-Carlo estimation sweep: fewer QP
-        iterations and the fused sweep hook.  Pass as
+        iterations, the fused sweep hook, and the batched step through one
+        batched solve (K2 on CUDA) for the unfused modes.  Pass as
         ``IrsMpcParams.estimation_system``."""
         cheap = dataclasses.replace(self, qp_iters=qp_iters)
-        sys = cheap.system()
+        sys = cheap.system(batch_kernel=True)
         if not self.pairs:
             return sys
         return dataclasses.replace(sys,

@@ -427,10 +427,11 @@ def _pdip_loop_dense(consts, b, C, d, x, s, lam, iters, sigma):
 # The chain
 # ---------------------------------------------------------------------------
 
-def bound_rows(bv, side: float, T: int, m: int, device) -> Tensor:
-    """A (T, m) bound as finite f32 rows: +-inf -> +-1e9, and a NaN bound
+def bound_rows(bv, side: float, T: int, m: int, device,
+               dtype=torch.float32) -> Tensor:
+    """A (T, m) bound as finite rows: +-inf -> +-1e9, and a NaN bound
     becomes its side's no-op value (side * 1e9), i.e. unconstrained."""
-    bv = torch.as_tensor(bv, dtype=torch.float32, device=device)
+    bv = torch.as_tensor(bv, dtype=dtype, device=device)
     bv = torch.where(torch.isnan(bv), torch.full_like(bv, side * BIG), bv)
     return torch.clamp(bv, -BIG, BIG).expand(T, m).contiguous()
 
@@ -441,22 +442,26 @@ def linesearch_rollout_plain(model, x0, u_prev0, K, z_ref_x, z_ref_w,
     as lane-batched tensor code.  Shapes: x0 (nq,), u_prev0 (m,),
     K (T, m, nz), z_ref_x (A, T, nq), z_ref_w (A, T, m) or None,
     u_ref (A, T, m), lb/ub (T, m), rel_lb/rel_ub (T, m) or None.  Returns
-    xs (A, T+1, nq), us (A, T, m)."""
+    xs (A, T+1, nq), us (A, T, m).  Computes in the dtype of ``x0`` (float64
+    inputs give the float64 chain that float32 chains are held to where
+    float32 does not determine them)."""
     A, T, m = u_ref.shape
     nq = model.nq
-    dev = x0.device
-    consts = make_consts(model, dev)
+    dev, dt = x0.device, x0.dtype
+    consts = {k: (v.to(dt) if torch.is_tensor(v) and v.is_floating_point()
+                  else v) for k, v in make_consts(model, dev).items()}
     aug = z_ref_w is not None
     has_rel = rel_lb is not None
-    lb, ub = bound_rows(lb, -1.0, T, m, dev), bound_rows(ub, 1.0, T, m, dev)
+    lb = bound_rows(lb, -1.0, T, m, dev, dt)
+    ub = bound_rows(ub, 1.0, T, m, dev, dt)
     if has_rel:
-        rel_lb = bound_rows(rel_lb, -1.0, T, m, dev)
-        rel_ub = bound_rows(rel_ub, 1.0, T, m, dev)
+        rel_lb = bound_rows(rel_lb, -1.0, T, m, dev, dt)
+        rel_ub = bound_rows(rel_ub, 1.0, T, m, dev, dt)
 
     x = x0.expand(A, nq)
     up = u_prev0.expand(A, m)
-    dq = torch.zeros(A, nq, device=dev)
-    lam = torch.ones(A, consts["rows"], device=dev)
+    dq = torch.zeros(A, nq, dtype=dt, device=dev)
+    lam = torch.ones(A, consts["rows"], dtype=dt, device=dev)
     xs, us = [x], []
     for t in range(T):
         fb = (x - z_ref_x[:, t]) @ K[t, :, :nq].T

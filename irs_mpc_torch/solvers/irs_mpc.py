@@ -12,9 +12,10 @@ One iteration is
 all on the device of the solver's tensors.  Each solve follows the device
 rule of its module: hand-written CUDA kernels for CUDA tensors (K1 Riccati,
 K2 batched contact QPs, K3 boxed ADMM, K4 the whole contact line search),
-plain PyTorch for CPU tensors.  ``forward_mode="resolve"``, the
-associative-scan Riccati pass and sharding are not ported yet and raise
-``NotImplementedError``.
+plain PyTorch for CPU tensors.  ``forward_mode="resolve"`` replaces the
+line search by one masked full-horizon boxed solve per knot (K1 and K3
+at every knot on CUDA).  The associative-scan Riccati pass and sharding
+are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -214,9 +215,9 @@ class IrsMpc:
                     f"{name} magnitude {mags.max():.3g} exceeds the "
                     f"representable limit {BOUND_BIG / 10:.3g}; use "
                     f"np.inf (or None) for unconstrained entries.")
-        if p.forward_mode != "feedback":
-            raise NotImplementedError(
-                f"forward_mode={p.forward_mode!r} is not ported yet")
+        if p.forward_mode not in ("feedback", "resolve"):
+            raise ValueError(f"forward_mode {p.forward_mode!r} not in "
+                             f"('feedback', 'resolve')")
         if p.parallel_riccati:
             raise NotImplementedError(
                 "parallel_riccati (associative scan) is not ported yet")
@@ -363,6 +364,8 @@ class IrsMpc:
             tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys, f_nom=f_nom)
 
         prob = self._build_problem(tv, x_trj)
+        if p.forward_mode == "resolve":
+            return self._resolve_iteration(prob, x_trj, u_trj)
         if self._has_bounds():
             idx_w = (torch.arange(n, n + m, device=self.device)
                      if self._aug else None)
@@ -417,6 +420,90 @@ class IrsMpc:
                           u=us_all.index_select(0, best)[0],
                           cvec=costs_all.index_select(0, best)[0],
                           best=best[0], lane_costs=costs_all)
+
+    def _resolve_iteration(self, prob, x_trj, u_trj) -> StepResult:
+        """The resolve forward pass: no line search; the nominal is kept
+        only where the re-solved trajectory's cost is not finite."""
+        x_new, u_new = self._resolve_forward(prob, x_trj)
+        cvec = torch.stack(self.eval_cost(x_new, u_new))
+        bad = ~torch.isfinite(cvec[0])
+        x_new = torch.where(bad, x_trj, x_new)
+        u_new = torch.where(bad, u_trj, u_new)
+        cvec = torch.where(bad, torch.stack(self.eval_cost(x_trj, u_trj)),
+                           cvec)
+        return StepResult(x=x_new, u=u_new, cvec=cvec,
+                          best=torch.zeros((), dtype=torch.long,
+                                           device=self.device),
+                          lane_costs=cvec[None])
+
+    def _resolve_forward(self, prob, x_trj):
+        """Receding-horizon forward pass: at every knot t, re-solve the
+        boxed QP over [t, T] from the state actually reached and apply
+        u*[t] to the true dynamics (T boxed solves, one after another).
+
+        Each subproblem is the full-horizon problem with stages s < t
+        padded: identity dynamics (in Δu mode the prev-input block pinned
+        to x[idx_u]), zero cost but a 1e-4 input ridge, and boxes masked
+        to +-BOUND_BIG; the final state keeps its box.  Its tail [t, T] is
+        then the shrunk-horizon QP.  Returns x (T+1, n), u (T, m)."""
+        p, sys = self.params, self.system
+        T, n, m = self.T, sys.dim_x, sys.dim_u
+        dev = self.device
+        n_aug = prob.A.shape[1]
+        # Padded stages: x' = x; w' = x[idx_u] in Δu mode, else w' = w (the
+        # prev-input block carries the applied input through the padding,
+        # so the tail's first relative bound anchors to it).
+        A_pad = torch.eye(n_aug, device=dev)
+        if self.idx_u is not None:
+            A_pad[n:] = 0.0
+            A_pad[torch.arange(n, n_aug, device=dev), self.idx_u] = 1.0
+        R_pad = 1e-4 * torch.eye(m, device=dev)
+        bounds = self._box_bounds(x_trj)
+        idx_w = torch.arange(n, n_aug, device=dev) if self._aug else None
+        steps = torch.arange(T + 1, device=dev)
+
+        def masked(b, keep):
+            if b is None:
+                return None
+            keep = keep[:, None]
+            return torch.stack([torch.where(keep, b[0], -BOUND_BIG),
+                                torch.where(keep, b[1], BOUND_BIG)])
+
+        x = x_trj[0]
+        u_prev = (x_trj[0, self.idx_u] if self.idx_u is not None
+                  else torch.zeros(m, device=dev))
+        ws = sys.ws_init_fn(dev) if sys.step_ws_fn is not None else None
+        xs, us = [x], []
+        for t in range(T):
+            keep_x = steps >= t               # the final state always
+            keep = keep_x[:T]
+            mk = keep.to(prob.A.dtype)[:, None, None]
+            if self.idx_u is not None:
+                z0 = torch.cat([x, x[self.idx_u]])
+            elif self._aug:
+                z0 = torch.cat([x, u_prev])
+            else:
+                z0 = x
+            prob_t = prob._replace(
+                A=mk * prob.A + (1 - mk) * A_pad, B=mk * prob.B,
+                c=mk[..., 0] * prob.c, Q=mk * prob.Q,
+                R=mk * prob.R + (1 - mk) * R_pad, N=mk * prob.N,
+                q=mk[..., 0] * prob.q, r=mk[..., 0] * prob.r, x0=z0)
+            bounds_t = admm_ops.BoxBounds(
+                x=masked(bounds.x, keep_x), u=masked(bounds.u, keep),
+                dx=masked(bounds.dx, keep), du=masked(bounds.du, keep))
+            sol = admm_ops.solve_boxed_tvlqr(
+                prob_t, bounds_t, n_phys=n, idx_w=idx_w, rho=p.admm_rho,
+                iters=p.admm_iters, over_relax=p.admm_over_relax)
+            u = torch.nan_to_num(sol.u_trj[t])
+            if ws is not None:
+                x, ws = sys.step_ws_fn(x, u, ws)
+            else:
+                x = sys.step(x, u)
+            xs.append(x)
+            us.append(u)
+            u_prev = u
+        return torch.stack(xs), torch.stack(us)
 
     def _rollout_lanes(self, x0, u_prev0, K, z_ref, u_ref, lb, ub, rel_lb,
                        rel_ub):

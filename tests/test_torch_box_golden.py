@@ -4,9 +4,10 @@ pushing and box pivoting, with the port's own random stream, on the CPU
 12% after 8 descents, without a kernel launch.  The CPU runs the same warm
 scan chain as the JAX goldens; the configurations are ``chip_smoke``'s,
 which ``tests/test_torch_box.py`` holds to the JAX package's examples.
-Carrots' initial cost, a deterministic rollout of its 45-dof pile, is held
-to its golden the same way; its descents run on the card
-(``chip_smoke.py``).
+Carrots' initial cost, a deterministic rollout of its 45-dof pile, and
+plate pickup's (the plain warm chain: ``chain_gate`` keeps K4 off its
+prismatic fingers) are held to their goldens the same way; their descents
+run on the card (``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -47,4 +48,13 @@ def test_carrots_initial_cost_on_cpu():
     assert not trollout.supports_model(model)    # nq = 45: no K4
     assert solver.system.ls_rollout_fn is None
     np.testing.assert_allclose(solver.cost_lst[0], chip_smoke.CARROTS_INITIAL,
+                               rtol=1e-3)
+
+
+def test_plate_pickup_initial_cost_on_cpu():
+    solver, model = chip_smoke.plate_pickup_solver("cpu")
+    assert trollout.supports_model(model)
+    assert not trollout.chain_gate(model)        # prismatic fingers
+    assert solver.system.ls_rollout_fn is None
+    np.testing.assert_allclose(solver.cost_lst[0], chip_smoke.PLATE_INITIAL,
                                rtol=1e-3)

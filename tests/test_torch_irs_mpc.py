@@ -140,10 +140,18 @@ def test_history_and_best_tracking():
     ("mesh", object()),
 ])
 def test_later_slices_raise_not_implemented(field, value):
+    """Options of slices not ported yet raise NotImplementedError; resolve,
+    ported since, runs on the CPU (``tests/test_torch_resolve.py`` holds
+    its curves to the JAX package's)."""
+    params = _params(tmpc, "exact", T=10, **{field: value})
+    if field == "forward_mode":
+        s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), params, device="cpu")
+        s.iterate(2, verbose=False)
+        assert np.isfinite(s.cost_lst).all() and len(s.cost_lst) == 3
+        assert not torch.equal(s.u_trj, s.u_trj_lst[0])
+        return
     with pytest.raises(NotImplementedError):
-        tmpc.IrsMpc(tmpc.make_pendulum(0.05),
-                    _params(tmpc, "exact", T=10, **{field: value}),
-                    device="cpu")
+        tmpc.IrsMpc(tmpc.make_pendulum(0.05), params, device="cpu")
 
 
 # Bounded pendulum solves (boxed ADMM, clipped feedback rollout): the

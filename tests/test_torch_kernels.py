@@ -716,3 +716,59 @@ def test_rollout_wrapper_refuses_what_the_kernel_does_not_take(fault,
     with pytest.raises(ValueError, match=match):
         cuda_rollout.linesearch_rollout_cuda(**fault(_cpu_chain()))
     assert cuda_rollout.LAUNCHES == before
+
+
+@needs_cuda
+def test_resolve_on_card_launches_per_knot():
+    """On the card every knot's boxed solve is one K1 launch (the ADMM's
+    initial solve) and one K3 launch; the curve is the CPU's."""
+    T = 12
+
+    def solver(device):
+        return IrsMpc(make_pendulum(0.05), chip_smoke.pendulum_resolve_params(
+            "resolve", T=T), device=device)
+
+    cpu, card = solver("cpu"), solver("cuda")
+    cpu.iterate(2, verbose=False)
+    cuda_riccati.LAUNCHES = cuda_admm.LAUNCHES = 0
+    card.iterate(2, verbose=False)
+    torch.cuda.synchronize()
+    assert (cuda_riccati.LAUNCHES, cuda_admm.LAUNCHES) == (2 * T, 2 * T)
+    np.testing.assert_allclose(card.cost_lst, cpu.cost_lst, rtol=1e-3)
+
+
+@needs_cuda
+def test_k4_on_cem_population_matches_plain_on_card():
+    """K4 with K = 0 at the planar-hand CEM's 2000 lanes, against its
+    plain chain (the rule of ``chip_smoke.k4_row``), and a contact CEM
+    iteration's two launches."""
+    calls = []
+    cem, _ = chip_smoke.planar_hand_cem("cuda")
+    with chip_smoke.capture(cuda_rollout, "linesearch_rollout_cuda", calls):
+        cuda_rollout.LAUNCHES = 0
+        cem.iterate(1, verbose=False)
+        torch.cuda.synchronize()
+    assert cuda_rollout.LAUNCHES == 2 and len(calls) == 2
+    args = calls[0][0]
+    assert args[6].shape[0] == 2000 and not args[3].any()
+    chip_smoke.k4_row("planar_hand CEM population", args, "card",
+                      plain_reps=1, float64_rule=True)
+
+
+@needs_cuda
+def test_batched_step_route_matches_plain_on_card():
+    """The surrogate's batched step on CUDA tensors is one K2 launch, and
+    agrees with the plain PDIP on the same states."""
+    model = irs_mpc_torch.make_plate_pickup()
+    sur = model.estimation_surrogate()
+    x = torch.tensor(chip_smoke.CONTACT_Q0["plate_pickup"],
+                     dtype=torch.float32).expand(64, -1).contiguous()
+    u = (x[:, torch.from_numpy(model.indices_u_into_x())]
+         + 0.02 * torch.randn((64, model.dim_u),
+                              generator=torch.Generator().manual_seed(0)))
+    before = cuda_qp.LAUNCHES
+    got = sur.step_batch(x.cuda(), u.cuda())
+    torch.cuda.synchronize()
+    assert cuda_qp.LAUNCHES == before + 1
+    want = sur.step_batch(x, u)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
