@@ -18,15 +18,22 @@ torch.set_float32_matmul_precision("highest")
 
 from .models.base import System  # noqa: E402
 from .models.bicycle import make_bicycle  # noqa: E402
+from .models.contact.mbp2d import Mbp2DModel  # noqa: E402
 from .models.contact.systems import (make_box_pivoting,  # noqa: E402
                                      make_box_pushing, make_carrots,
                                      make_planar_hand, make_plate_pickup)
+from .models.mlp import DynamicsMlp, train_mlp_dynamics  # noqa: E402
 from .models.pendulum import make_pendulum  # noqa: E402
 from .models.quadrotor import make_quadrotor  # noqa: E402
 from .models.three_cart import make_three_cart  # noqa: E402
 from .ops.admm import BoxBounds, solve_boxed_tvlqr  # noqa: E402
 from .ops.estimators import SmoothingConfig, estimate_tv_matrices  # noqa: E402
 from .ops import lqr  # noqa: E402
+from .ops.lqr import riccati_backward_assoc  # noqa: E402
+from .ops.solvers import SolverSpec, get_solver  # noqa: E402
+from .parallel import multihost  # noqa: E402
+from .parallel.sharded import (Mesh, default_mesh, make_mesh,  # noqa: E402
+                               sharded_estimate_tv_matrices)
 from .solvers.cem import CemParams, CrossEntropyMethod  # noqa: E402
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats  # noqa: E402
 
@@ -34,8 +41,10 @@ __all__ = [
     "System", "make_pendulum", "make_bicycle", "make_quadrotor",
     "make_three_cart", "make_planar_hand", "make_box_pushing",
     "make_box_pivoting", "make_plate_pickup", "make_carrots",
-    "SmoothingConfig",
-    "estimate_tv_matrices", "lqr", "BoxBounds", "solve_boxed_tvlqr",
+    "Mbp2DModel", "DynamicsMlp", "train_mlp_dynamics", "SmoothingConfig",
+    "estimate_tv_matrices", "lqr", "riccati_backward_assoc", "BoxBounds",
+    "solve_boxed_tvlqr", "SolverSpec", "get_solver", "Mesh", "make_mesh",
+    "default_mesh", "sharded_estimate_tv_matrices", "multihost",
     "IrsMpc", "IrsMpcParams", "IterationStats", "CemParams",
     "CrossEntropyMethod",
 ]

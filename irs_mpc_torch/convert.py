@@ -2,9 +2,9 @@
 package over.
 
 The JAX objects are read duck-typed, through ``getattr``, ``np.asarray``
-and their class names; this module imports nothing of JAX.  The port has no
-learned weights: what crosses is the model description, the problem and the
-solver's iterate.
+and their class names; this module imports nothing of JAX.  What crosses is
+the model description, the problem, the solver's iterate and the weights of
+a learned MLP (``mlp_from_flax``).
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ import torch
 
 from .models.bicycle import make_bicycle
 from .models.contact import geometry as geom
+from .models.contact.mbp2d import Mbp2DModel
 from .models.contact.quasistatic import (ContactPair, ModelInstance,
                                          QuasistaticModel)
+from .models.mlp import DynamicsMlp
 from .models.pendulum import make_pendulum
 from .models.quadrotor import make_quadrotor
 from .models.three_cart import make_three_cart
@@ -112,11 +114,18 @@ _ANALYTIC = {"pendulum": make_pendulum, "bicycle": make_bicycle,
 
 
 def system_from_jax(s):
-    """The port's analytic system for a JAX one, by its name, with the
-    constructor arguments of the JAX factory: its ``h``, and the cart
-    width ``d`` of the three-cart model, read from the closure of its
-    step.  Raises on a name the port has no factory for (contact models
-    cross through ``model_from_jax``)."""
+    """The port's counterpart of a JAX system: a second-order contact
+    model (``Mbp2DModel``: its base through ``model_from_jax``, and its own
+    fields), or an analytic system by its name, with the constructor
+    arguments of the JAX factory: its ``h``, and the cart width ``d`` of
+    the three-cart model, read from the closure of its step.  Raises on a
+    name the port has no factory for (quasistatic contact models cross
+    through ``model_from_jax``)."""
+    if type(s).__name__ == "Mbp2DModel":
+        return Mbp2DModel(
+            base=model_from_jax(s.base), actuated_mass=_plain(
+                s.actuated_mass), damping=float(s.damping),
+            control_mode=str(s.control_mode), kd_ratio=float(s.kd_ratio))
     if s.name not in _ANALYTIC:
         raise ValueError(f"system_from_jax: no analytic factory "
                          f"{s.name!r}; contact models cross through "
@@ -126,6 +135,22 @@ def system_from_jax(s):
                     (c.cell_contents for c in step.__closure__ or ())))
     kw = {"d": float(free["d"])} if s.name == "three_cart" else {}
     return _ANALYTIC[s.name](h=float(s.h), **kw)
+
+
+def mlp_from_flax(params, hidden, dim_x: int, device="cpu") -> DynamicsMlp:
+    """A ``DynamicsMlp`` on ``device`` with the weights of the JAX
+    package's flax MLP: ``params`` as ``model.init`` returns them
+    ({"params": {"Dense_i": {"kernel": (in, out), "bias": (out,)}}}); each
+    kernel is transposed into its ``Linear``'s (out, in) weight."""
+    dense = params["params"]
+    dim_u = np.asarray(dense["Dense_0"]["kernel"]).shape[0] - dim_x
+    model = DynamicsMlp(tuple(hidden), dim_x, dim_u, device=device)
+    with torch.no_grad():
+        for i, layer in enumerate(list(model.hidden) + [model.out]):
+            d = dense[f"Dense_{i}"]
+            layer.weight.copy_(_tensor(np.asarray(d["kernel"]).T, device))
+            layer.bias.copy_(_tensor(d["bias"], device))
+    return model
 
 
 def cem_params_from_jax(p) -> CemParams:
@@ -152,8 +177,7 @@ def params_from_jax(p, device="cpu", decay=None,
     (e.g. ``model.estimation_surrogate()`` of the carried model).  Raises
     where either is missing, and if a mesh or an iteration callback is
     set.  The JAX Riccati backends ("scan", "pallas", "auto") all become
-    the port's "auto"; "assoc" stays and is refused by the solver until it
-    is ported."""
+    the port's "auto"; "assoc" stays."""
     for name in ("mesh", "iteration_callback"):
         if getattr(p, name, None) is not None:
             raise ValueError(f"params_from_jax: {name} cannot be carried "

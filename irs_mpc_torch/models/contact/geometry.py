@@ -18,6 +18,7 @@ Conventions:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -42,7 +43,15 @@ def _rot_apply(th: Tensor, v) -> Tensor:
 
 
 def _const(v, like: Tensor) -> Tensor:
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """The constant ``v`` (floats) as a tensor of ``like``'s dtype and
+    device, made once and shared by every caller (never write to it): a
+    copy from the host would wait on the device's queue at every call."""
+    return _cached_const(tuple(map(float, v)), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_const(v, dtype, device) -> Tensor:
+    return torch.tensor(v, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +172,14 @@ def box_corners(box_center, box_half, box_theta):
 # ---------------------------------------------------------------------------
 
 def _unit(q: Tensor, i: int) -> Tensor:
-    """The one-hot row e_i of length nq, on q's device."""
-    return torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)[i]
+    """The one-hot row e_i of length nq, on q's device (made once and
+    shared, as ``_const``)."""
+    return _cached_unit(q.shape[-1], i, q.dtype, q.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_unit(n: int, i: int, dtype, device) -> Tensor:
+    return torch.eye(n, dtype=dtype, device=device)[i]
 
 
 def _jac(q: Tensor, terms) -> Tensor:

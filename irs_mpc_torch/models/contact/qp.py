@@ -105,7 +105,8 @@ class _SolveQP(torch.autograd.Function):
     """Forward: ``_pdip_solve``; forward-mode derivative: implicit
     differentiation of the relaxed KKT system with the duals' sensitivity
     D = lam/s (capped at W_CAP), the soft active set, as in the JAX
-    package's ``custom_jvp``.  ``jvp`` and ``generate_vmap_rule`` make
+    package's ``custom_jvp`` (whose float32 solve the port widens to
+    float64, see ``jvp``).  ``jvp`` and ``generate_vmap_rule`` make
     ``torch.func.jacfwd`` and ``vmap`` use it; nothing differentiates
     through the unrolled iterations."""
     generate_vmap_rule = True
@@ -118,22 +119,34 @@ class _SolveQP(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         P, q, C, d, _ = inputs
         x, s, lam = output
+        ctx.out_dtype = x.dtype
         ctx.save_for_forward(P, C, x, s, lam)
         ctx.mark_non_differentiable(s, lam)
 
     @staticmethod
     def jvp(ctx, dP, dq, dC, dd, _):
+        """The KKT system is formed and solved in (at least) float64, and
+        the tangent returned in the solution's dtype.  An active row
+        carries D up to 1e9-1e10, so in float32 the digits of P are lost
+        in P + C'DC: the derivative is then determined only to O(1) of its
+        largest entry, and a few such samples poison an averaged
+        first-order Jacobian (the second-order planar hand's zero_order_B
+        stalled near 18.5 against the JAX package's 6.1 on the same
+        configuration).  The forward solve stays in the input's dtype."""
         P, C, x, s, lam = ctx.saved_tensors
+        wide = torch.promote_types(x.dtype, torch.float64)
         dP, dq = _zero_if_none(dP, P), _zero_if_none(dq, x)
         dC, dd = _zero_if_none(dC, C), _zero_if_none(dd, s)
+        P, C, x, s, lam, dP, dq, dC, dd = (
+            t.to(wide) for t in (P, C, x, s, lam, dP, dq, dC, dd))
         n = x.shape[-1]
         D = torch.clamp(lam / torch.clamp(s, min=1e-8), max=W_CAP)
         Ct = C.transpose(-1, -2)
         H = P + (Ct * D.unsqueeze(-2)) @ C \
-            + 1e-10 * torch.eye(n, dtype=P.dtype, device=P.device)
+            + 1e-10 * torch.eye(n, dtype=wide, device=P.device)
         rhs = -(_mv(dP, x) + dq + _mv(dC.transpose(-1, -2), lam)) \
             + _mv(Ct, D * (dd - _mv(dC, x)))
-        return solve_spd(H, rhs), None, None
+        return solve_spd(H, rhs).to(ctx.out_dtype), None, None
 
     @staticmethod
     def backward(ctx, *grads):

@@ -19,6 +19,7 @@ supported model goes through kernel K4 (``cuda_rollout``) on CUDA tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -29,6 +30,19 @@ from . import geometry as geom
 from .qp import solve_qp, solve_qp_warm
 
 Tensor = torch.Tensor
+
+
+def _on_device(diag: np.ndarray, device, dtype) -> Tensor:
+    """diag(``diag``) on ``device``, made once for each value and shared
+    by every caller (never write to it): a copy from the host would wait
+    on the device's queue at every step."""
+    return _cached_diag(tuple(diag.tolist()), device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_diag(diag, device, dtype) -> Tensor:
+    return torch.diag(torch.tensor(diag, dtype=torch.float32)).to(device,
+                                                                   dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +173,7 @@ class QuasistaticModel:
                     tau[:2] = mass[:2] * g
                 for j, qi in enumerate(m.q_indices):
                     cols[qi] = zero - float(tau[j])
-        P = torch.diag(torch.from_numpy(p_diag)).to(q.device, q.dtype)
+        P = _on_device(p_diag, q.device, q.dtype)
         return P.expand(q.shape[:-1] + P.shape), torch.stack(cols, dim=-1)
 
     def _body_point_jacobian(self, body_idx: int, q, p, shape_idx: int):

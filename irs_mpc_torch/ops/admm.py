@@ -19,7 +19,10 @@ affine recursion.
 
 Device rule: CUDA tensors run the whole sweep loop as one launch of kernel
 K3 (``cuda_admm``), after the unconstrained initial solve (K1); CPU tensors
-run the factored plain loop below, which is K3's plain version.
+run the factored plain loop below, which is K3's plain version.  Under
+``parallel=True`` every sweep is a full associative-scan solve of the
+penalised problem on either device (the JAX package's generic path for
+its assoc backend), and no kernel is launched.
 """
 from __future__ import annotations
 
@@ -173,19 +176,25 @@ def _residuals(s: _SVals, z: _SVals, z_prev: _SVals, bounds: BoxBounds,
 def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
                       n_phys: int, idx_w: Optional[Tensor] = None,
                       rho: float = 1.0, iters: int = 60,
-                      over_relax: float = 1.0) -> AdmmSolution:
+                      over_relax: float = 1.0,
+                      parallel: bool = False) -> AdmmSolution:
     """Solve the boxed TV-LQR QP by ``iters`` ADMM sweeps.  ``prob`` may be
     Δu-augmented (then ``idx_w`` points at the prev-input block and
     ``n_phys`` < n).  ``over_relax`` in [1, 2) is the ADMM relaxation a
-    (1.0 is plain ADMM).  All-None bounds give the unconstrained solve."""
+    (1.0 is plain ADMM).  All-None bounds give the unconstrained solve.
+
+    ``parallel`` runs the initial solve and every sweep as a full
+    associative-scan solve of the penalised problem (``lqr_solve(...,
+    parallel=True)``), as plain tensor ops on either device: neither K1
+    nor K3 is launched."""
     if all(b is None for b in bounds):
-        x_trj, u_trj, gains = lqr_ops.lqr_solve(prob)
+        x_trj, u_trj, gains = lqr_ops.lqr_solve(prob, parallel=parallel)
         zero = prob.A.new_zeros(())
         return AdmmSolution(x_trj=x_trj, u_trj=u_trj, gains=gains,
                             r_primal=zero, r_dual=zero)
 
     # z starts at the unconstrained solution projected onto the boxes.
-    x0_trj, u0_trj, gains0 = lqr_ops.lqr_solve(prob)
+    x0_trj, u0_trj, gains0 = lqr_ops.lqr_solve(prob, parallel=parallel)
     s0 = _stage_values(prob, x0_trj, u0_trj, n_phys, idx_w)
     z0 = _SVals(**{k: _clip(getattr(s0, k), getattr(bounds, k))
                    for k in KINDS if getattr(bounds, k) is not None})
@@ -198,7 +207,10 @@ def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
         r_primal, r_dual = _residuals(s0, z0, z0, bounds, rho)
         return AdmmSolution(x_trj=x0_trj, u_trj=u0_trj, gains=gains0,
                             r_primal=r_primal, r_dual=r_dual)
-    if _nvcc.on_card(prob.A):
+    if parallel:
+        x_trj, u_trj, gains, z, z_prev = _admm_assoc(
+            prob, bounds, z0, y0, n_phys, idx_w, rho, iters, over_relax)
+    elif _nvcc.on_card(prob.A):
         from .cuda_admm import solve_boxed_tvlqr_cuda
         x_trj, u_trj, K, k, z, z_prev = solve_boxed_tvlqr_cuda(
             prob, bounds, z0, y0, n_phys=n_phys, idx_w=idx_w, rho=rho,
@@ -219,12 +231,24 @@ def _clip(v, b):
     return torch.minimum(torch.maximum(v, b[0]), b[1])
 
 
+def _consensus(s: _SVals, z: _SVals, y: _SVals, bounds: BoxBounds, a):
+    """The over-relaxed z and y updates of one sweep from its stage values
+    ``s``, over the enabled bound kinds."""
+    z_new, y_new = {}, {}
+    for k in KINDS:
+        if getattr(bounds, k) is None:
+            continue
+        sh = a * getattr(s, k) + (1.0 - a) * getattr(z, k)
+        z_new[k] = _clip(sh + getattr(y, k), getattr(bounds, k))
+        y_new[k] = getattr(y, k) + sh - z_new[k]
+    return _SVals(**z_new), _SVals(**y_new)
+
+
 def _admm_plain(prob, bounds, z, y, n_phys, idx_w, rho, iters, a):
     """The factored sweep loop, K3's plain version.  Returns (x, u, gains,
     z, z_prev) of the last sweep."""
     pen0 = _penalized_problem(prob, bounds, z, y, rho, n_phys, idx_w)
     fac = lqr_ops.riccati_factorize(pen0)
-    enabled = [k for k in KINDS if getattr(bounds, k) is not None]
     z_prev = z
     for _ in range(int(iters)):
         q, r, qf = _penalized_linear_terms(prob, bounds, z, y, rho, n_phys,
@@ -233,10 +257,19 @@ def _admm_plain(prob, bounds, z, y, n_phys, idx_w, rho, iters, a):
         gains = lqr_ops.riccati_linear(pen, fac)
         x_trj, u_trj = lqr_ops.lqr_rollout_linear(pen, gains)
         s = _stage_values(prob, x_trj, u_trj, n_phys, idx_w)
-        z_new, y_new = {}, {}
-        for k in enabled:
-            sh = a * getattr(s, k) + (1.0 - a) * getattr(z, k)
-            z_new[k] = _clip(sh + getattr(y, k), getattr(bounds, k))
-            y_new[k] = getattr(y, k) + sh - z_new[k]
-        z_prev, z, y = z, _SVals(**z_new), _SVals(**y_new)
+        z_prev, (z, y) = z, _consensus(s, z, y, bounds, a)
+    return x_trj, u_trj, gains, z, z_prev
+
+
+def _admm_assoc(prob, bounds, z, y, n_phys, idx_w, rho, iters, a):
+    """The unfactored sweep loop of the associative-scan route: every sweep
+    solves the whole penalised problem by ``riccati_backward_assoc`` and
+    the linear plan.  Returns (x, u, gains, z, z_prev) of the last
+    sweep."""
+    z_prev = z
+    for _ in range(int(iters)):
+        pen = _penalized_problem(prob, bounds, z, y, rho, n_phys, idx_w)
+        x_trj, u_trj, gains = lqr_ops.lqr_solve(pen, parallel=True)
+        s = _stage_values(prob, x_trj, u_trj, n_phys, idx_w)
+        z_prev, (z, y) = z, _consensus(s, z, y, bounds, a)
     return x_trj, u_trj, gains, z, z_prev

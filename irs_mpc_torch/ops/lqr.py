@@ -10,7 +10,11 @@ The problem is the canonical stage form of the JAX package's ``ops/lqr.py``:
 tensors' device: CUDA tensors go through the hand-written kernel
 (``cuda_riccati``; ``lqr_solve`` rolls the linear plan out in the same
 launch), CPU tensors through the plain loop ``riccati_backward_plain`` (and
-``lqr_rollout_linear`` after it).
+``lqr_rollout_linear`` after it).  Backend ``"assoc"`` (or
+``lqr_solve(..., parallel=True)``) takes the associative-scan pass
+``riccati_backward_assoc`` instead, as plain tensor ops on either device:
+its counterpart in the JAX package is ``lax.associative_scan``, not a
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -41,6 +45,9 @@ class LqrProblem(NamedTuple):
     Qf: Tensor
     qf: Tensor
     x0: Tensor
+
+
+BACKENDS = ("auto", "assoc")
 
 
 class LqrGains(NamedTuple):
@@ -88,19 +95,19 @@ def riccati_backward_plain(prob: LqrProblem) -> LqrGains:
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "assoc":
-        raise NotImplementedError(
-            "the associative-scan Riccati pass is not ported yet")
-    if backend != "auto":
-        raise ValueError(f"riccati backend {backend!r} is not 'auto'")
+    if backend not in BACKENDS:
+        raise ValueError(f"riccati backend {backend!r} not in {BACKENDS}")
 
 
 def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
-    """Riccati backward pass by the tensors' device.
+    """Riccati backward pass by the tensors' device, or by the associative
+    scan under ``backend="assoc"``.
 
-    CUDA tensors launch the hand-written kernel and raise if it cannot run;
-    CPU tensors run ``riccati_backward_plain``."""
+    "auto": CUDA tensors launch the hand-written kernel and raise if it
+    cannot run; CPU tensors run ``riccati_backward_plain``."""
     _check_backend(backend)
+    if backend == "assoc":
+        return riccati_backward_assoc(prob)
     device = prob.A.device
     if _nvcc.on_card(prob.A):
         K, k = cuda_riccati.riccati_backward_cuda(
@@ -109,6 +116,97 @@ def riccati_backward(prob: LqrProblem, backend: str = "auto") -> LqrGains:
     if device.type == "cpu":
         return riccati_backward_plain(prob)
     raise ValueError(f"no Riccati backward pass for device {device}")
+
+
+class _AssocElem(NamedTuple):
+    """An element of the parallel-in-time LQR (Särkkä and García-Fernández,
+    2021): the conditional value function between two times, V(x_i ->
+    x_j), parameterised by (F, b, C, eta, J), batched over a leading
+    dim."""
+    F: Tensor
+    b: Tensor
+    C: Tensor
+    eta: Tensor
+    J: Tensor
+
+
+def _assoc_combine(e1: _AssocElem, e2: _AssocElem) -> _AssocElem:
+    """The associative combination of ``e1`` (earlier) with ``e2``
+    (later), batched over leading dims; vectors are lifted to (..., n, 1)
+    columns so that every product is a batched matmul."""
+    n = e1.F.shape[-1]
+    eye = torch.eye(n, dtype=e1.F.dtype, device=e1.F.device).expand(
+        e1.F.shape)
+    M = torch.linalg.solve(eye + e1.C @ e2.J, eye)      # (I + C1 J2)^-1
+    Mt = torch.linalg.solve(eye + e2.J @ e1.C, eye)     # (I + J2 C1)^-1
+    F2M = e2.F @ M
+    F1t = e1.F.transpose(-1, -2)
+    b1 = e1.b[..., None]
+    eta2 = e2.eta[..., None]
+    return _AssocElem(
+        F=F2M @ e1.F,
+        b=(F2M @ (b1 + e1.C @ eta2))[..., 0] + e2.b,
+        C=F2M @ e1.C @ e2.F.transpose(-1, -2) + e2.C,
+        eta=(F1t @ Mt @ (eta2 - e2.J @ b1))[..., 0] + e1.eta,
+        J=F1t @ Mt @ e2.J @ e1.F + e1.J)
+
+
+def _suffix_scan(elems: _AssocElem) -> _AssocElem:
+    """Reversed inclusive scan over the leading dim of length L: element t
+    of the result composes elements t..L-1.  Hillis-Steele, ceil(log2 L)
+    levels; a level of stride d combines every element t < L - d with
+    element t + d in one batched ``_assoc_combine``."""
+    L = elems.F.shape[0]
+    d = 1
+    while d < L:
+        head = _assoc_combine(_AssocElem(*(a[:L - d] for a in elems)),
+                              _AssocElem(*(a[d:] for a in elems)))
+        elems = _AssocElem(*(torch.cat([h, a[L - d:]])
+                             for h, a in zip(head, elems)))
+        d *= 2
+    return elems
+
+
+def riccati_backward_assoc(prob: LqrProblem) -> LqrGains:
+    """Associative-scan Riccati backward pass, O(log T) deep in time.
+
+    The cross term N and the linear input term r are eliminated by the
+    substitution u = v - R^-1 (N'x + r), which leaves every stage in the
+    tracking form of the parallel formulation; the per-stage elements and
+    the terminal one go through a reversed scan, and the gains are
+    recovered from the value function (P, p) at t+1 as in the sequential
+    pass.  Returns P and p of length T+1."""
+    T, n, m = prob.B.shape
+    Rinv_N = torch.linalg.solve(prob.R, prob.N.transpose(1, 2))   # (T,m,n)
+    Rinv_r = torch.linalg.solve(prob.R, prob.r[..., None])[..., 0]
+    A_bar = prob.A - prob.B @ Rinv_N
+    c_bar = prob.c - (prob.B @ Rinv_r[..., None])[..., 0]
+    Q_bar = prob.Q - prob.N @ Rinv_N
+    q_bar = prob.q - (prob.N @ Rinv_r[..., None])[..., 0]
+
+    # Element t maps V_{t+1} to V_t for the stage cost x'Q̄x + 2q̄'x + v'Rv
+    # and the dynamics x' = Āx + Bv + c̄; the last element is the terminal
+    # cost.
+    BRB = prob.B @ torch.linalg.solve(prob.R, prob.B.transpose(1, 2))
+    zeros = prob.A.new_zeros((1, n, n))
+    elems = _AssocElem(
+        F=torch.cat([A_bar, zeros]),
+        b=torch.cat([c_bar, prob.A.new_zeros((1, n))]),
+        C=torch.cat([BRB, zeros]),
+        eta=torch.cat([-q_bar, -prob.qf[None]]),
+        J=torch.cat([Q_bar, prob.Qf[None]]))
+    # Element t of the scan composes stages t..T: V_t(x) = x'Jx - 2 eta'x.
+    combined = _suffix_scan(elems)
+    P, p = combined.J, -combined.eta
+
+    P1, p1 = P[1:], p[1:]
+    Bt = prob.B.transpose(1, 2)
+    H = prob.R + Bt @ (P1 @ prob.B)
+    G = prob.N.transpose(1, 2) + Bt @ (P1 @ prob.A)
+    Pc_p = (P1 @ prob.c[..., None])[..., 0] + p1
+    g = prob.r + (Bt @ Pc_p[..., None])[..., 0]
+    Kk = solve_spd(H, torch.cat([G, g[..., None]], dim=2))
+    return LqrGains(K=Kk[..., :-1], k=Kk[..., -1], P=P, p=p)
 
 
 class RiccatiFactorization(NamedTuple):
@@ -171,15 +269,20 @@ def lqr_rollout_linear(prob: LqrProblem, gains: LqrGains):
     return torch.stack(xs), torch.stack(us)
 
 
-def lqr_solve(prob: LqrProblem, backend: str = "auto"):
+def lqr_solve(prob: LqrProblem, backend: str = "auto",
+              parallel: bool = False):
     """Solve the unconstrained affine-quadratic problem exactly.
     Returns (x_trj, u_trj, gains).
 
-    CUDA tensors: one launch of the kernel, backward pass and plan (P and
-    p stay on chip, None); CPU tensors: ``riccati_backward_plain`` and
-    ``lqr_rollout_linear``."""
+    "auto": CUDA tensors make one launch of the kernel, backward pass and
+    plan (P and p stay on chip, None); CPU tensors run
+    ``riccati_backward_plain`` and ``lqr_rollout_linear``.  ``parallel``
+    (or backend "assoc") runs ``riccati_backward_assoc`` and
+    ``lqr_rollout_linear`` on either device."""
     _check_backend(backend)
-    if _nvcc.on_card(prob.A):
+    if parallel:
+        backend = "assoc"
+    if backend == "auto" and _nvcc.on_card(prob.A):
         x_trj, u_trj, K, k = cuda_riccati.lqr_solve_cuda(
             LqrProblem(*(a.contiguous() for a in prob)))
         return x_trj, u_trj, LqrGains(K=K, k=k, P=None, p=None)

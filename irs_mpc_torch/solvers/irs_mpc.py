@@ -14,8 +14,11 @@ rule of its module: hand-written CUDA kernels for CUDA tensors (K1 Riccati,
 K2 batched contact QPs, K3 boxed ADMM, K4 the whole contact line search),
 plain PyTorch for CPU tensors.  ``forward_mode="resolve"`` replaces the
 line search by one masked full-horizon boxed solve per knot (K1 and K3
-at every knot on CUDA).  The associative-scan Riccati pass and sharding
-are not ported yet and raise ``NotImplementedError``.
+at every knot on CUDA).  ``parallel_riccati`` (or ``riccati_backend=
+"assoc"``) solves the trajectory QP by the associative-scan Riccati pass
+instead, as plain tensor ops on either device, and ``mesh`` shards the
+estimation over a (sample, knot) grid of devices, possibly spanning the
+ranks of a ``torch.distributed`` group (``parallel/sharded.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ..ops import admm as admm_ops
 from ..ops import lqr as lqr_ops
 from ..ops.estimators import (SmoothingConfig, TvLinearization, decouple_AB,
                               estimate_tv_matrices_fnom)
+from ..parallel.sharded import sharded_estimate_tv_matrices
 
 Tensor = torch.Tensor
 
@@ -76,14 +80,19 @@ class IrsMpcParams:
     # Line-search step sizes; alpha=0 (last) keeps the nominal trajectory,
     # so the accepted iterate never regresses.
     line_search_alphas: tuple = (1.0, 0.6, 0.3, 0.1, 0.03, 0.0)
+    # The associative-scan Riccati pass (plain tensor ops, O(log T) deep)
+    # for the trajectory QP, unbounded or boxed.
     parallel_riccati: bool = False
-    # "auto": the CUDA kernel for CUDA tensors, the plain loop for CPU ones.
+    # "auto": the CUDA kernel for CUDA tensors, the plain loop for CPU ones;
+    # "assoc": the associative scan, as ``parallel_riccati`` (and also in
+    # resolve mode).
     riccati_backend: str = "auto"
     admm_iters: int = 60                 # boxed-QP sweeps
     admm_rho: float = 1.0
     admm_over_relax: float = 1.0
     seed: int = 0
-    mesh: Optional[object] = None                  # must be None
+    # A ``parallel.sharded.Mesh``: the estimation runs sharded over it.
+    mesh: Optional[object] = None
     # The reference costs the final state with Q, not Qd; keep True to
     # match its cost curves (initial pendulum cost 1856.1541).
     report_final_cost_with_Q: bool = True
@@ -156,6 +165,9 @@ class IrsMpc:
         self._mask_u = torch.zeros(system.dim_x, device=dev)
         if p.unactuated_indices is not None:
             self._mask_u[_on(p.unactuated_indices, dev, torch.long)] = 1.0
+        # The JAX package takes the assoc pass for the feedback iteration
+        # under either option, and in resolve mode under the backend only.
+        self._assoc = p.parallel_riccati or p.riccati_backend == "assoc"
         self._alphas = torch.tensor(p.line_search_alphas, dtype=torch.float32,
                                     device=dev)
         # Array stds go to the device once, so that no iteration copies them.
@@ -218,14 +230,9 @@ class IrsMpc:
         if p.forward_mode not in ("feedback", "resolve"):
             raise ValueError(f"forward_mode {p.forward_mode!r} not in "
                              f"('feedback', 'resolve')")
-        if p.parallel_riccati:
-            raise NotImplementedError(
-                "parallel_riccati (associative scan) is not ported yet")
-        if p.riccati_backend != "auto":
-            raise ValueError(f"riccati_backend {p.riccati_backend!r}: the "
-                             "port has only 'auto' (follows the device)")
-        if p.mesh is not None:
-            raise NotImplementedError("sharding over a mesh is not ported yet")
+        if p.riccati_backend not in lqr_ops.BACKENDS:
+            raise ValueError(f"riccati_backend {p.riccati_backend!r} not in "
+                             f"{lqr_ops.BACKENDS}")
 
     # ------------------------------------------------------------------
     def eval_cost(self, x_trj: Tensor, u_trj: Tensor):
@@ -356,10 +363,16 @@ class IrsMpc:
         # linearises the true system.
         est_sys = (sys if p.gradient_mode == "exact"
                    else p.estimation_system or sys)
-        # need_A=False: decouple_AB is about to overwrite A.
-        tv, f_nom = estimate_tv_matrices_fnom(
-            est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
-            self.smoothing, perturbations, need_A=not p.decouple_AB)
+        if p.mesh is not None:
+            tv = sharded_estimate_tv_matrices(
+                est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
+                self.smoothing, p.mesh, perturbations)
+            f_nom = None
+        else:
+            # need_A=False: decouple_AB is about to overwrite A.
+            tv, f_nom = estimate_tv_matrices_fnom(
+                est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
+                self.smoothing, perturbations, need_A=not p.decouple_AB)
         if p.decouple_AB:
             tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys, f_nom=f_nom)
 
@@ -372,10 +385,11 @@ class IrsMpc:
             sol = admm_ops.solve_boxed_tvlqr(
                 prob, self._box_bounds(x_trj), n_phys=n, idx_w=idx_w,
                 rho=p.admm_rho, iters=p.admm_iters,
-                over_relax=p.admm_over_relax)
+                over_relax=p.admm_over_relax, parallel=self._assoc)
             K, z_plan, u_plan = sol.gains.K, sol.x_trj, sol.u_trj
         else:
-            z_plan, u_plan, gains = lqr_ops.lqr_solve(prob)
+            z_plan, u_plan, gains = lqr_ops.lqr_solve(prob,
+                                                      parallel=self._assoc)
             K = gains.K
         # Sanitise: a degenerate estimate must not poison the alpha=0 lane,
         # which reproduces the nominal trajectory exactly.
@@ -494,7 +508,8 @@ class IrsMpc:
                 dx=masked(bounds.dx, keep), du=masked(bounds.du, keep))
             sol = admm_ops.solve_boxed_tvlqr(
                 prob_t, bounds_t, n_phys=n, idx_w=idx_w, rho=p.admm_rho,
-                iters=p.admm_iters, over_relax=p.admm_over_relax)
+                iters=p.admm_iters, over_relax=p.admm_over_relax,
+                parallel=p.riccati_backend == "assoc")
             u = torch.nan_to_num(sol.u_trj[t])
             if ws is not None:
                 x, ws = sys.step_ws_fn(x, u, ws)

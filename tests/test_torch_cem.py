@@ -249,6 +249,10 @@ CONFIGS = {
                          dict(T=6, batch_size=20, n_elite=4)),
     "bicycle_cem": ("bicycle", "build_cem_solver",
                     dict(hard=True, T=6, batch_size=20, n_elite=4)),
+    # The second-order plant at the example's horizon (T=30).
+    "planar_hand_second_cem": ("planar_hand_second_order",
+                               "build_cem_solver",
+                               dict(batch_size=20, n_elite=16)),
 }
 
 
@@ -268,14 +272,18 @@ def test_smoke_cem_configuration_is_the_example(name):
     if jm is not None:
         # The CEM's own model: box pivoting's keeps its duals
         # uncanonicalised (the iRS factory's opt in), so chain_gate leaves
-        # it without K4, as the JAX package's gate does.
-        want_model = convert.model_from_jax(jm)
+        # it without K4, as the JAX package's gate does; the second-order
+        # plant has no whole-chain rollout in either package.
+        if name == "planar_hand_second_cem":
+            want_model = convert.system_from_jax(jm)
+        else:
+            want_model = convert.model_from_jax(jm)
         if name == "box_pivoting_cem":
             want_model = dataclasses.replace(want_model,
                                              canon_warm_duals=False)
         assert tm == want_model
         assert (tc.system.ls_rollout_fn is None) == (
-            name == "box_pivoting_cem")
+            name in ("box_pivoting_cem", "planar_hand_second_cem"))
     np.testing.assert_allclose(tc.cost, jc.cost, rtol=1e-5)
 
 

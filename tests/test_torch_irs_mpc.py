@@ -140,18 +140,25 @@ def test_history_and_best_tracking():
     ("mesh", object()),
 ])
 def test_later_slices_raise_not_implemented(field, value):
-    """Options of slices not ported yet raise NotImplementedError; resolve,
-    ported since, runs on the CPU (``tests/test_torch_resolve.py`` holds
-    its curves to the JAX package's)."""
+    """The options of the later slices, each once refused with
+    NotImplementedError, now run on the CPU: resolve
+    (``tests/test_torch_resolve.py`` holds its curves to the JAX
+    package's), the associative-scan Riccati pass and the sharded
+    estimation (``tests/test_torch_assoc.py``, ``test_torch_parallel.py``);
+    here each descends from the same start as the default options, the
+    last two to the default's cost within 1e-4."""
+    if field == "mesh":
+        value = tmpc.make_mesh(2, 2, devices="cpu")
     params = _params(tmpc, "exact", T=10, **{field: value})
-    if field == "forward_mode":
-        s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), params, device="cpu")
-        s.iterate(2, verbose=False)
-        assert np.isfinite(s.cost_lst).all() and len(s.cost_lst) == 3
-        assert not torch.equal(s.u_trj, s.u_trj_lst[0])
-        return
-    with pytest.raises(NotImplementedError):
-        tmpc.IrsMpc(tmpc.make_pendulum(0.05), params, device="cpu")
+    s = tmpc.IrsMpc(tmpc.make_pendulum(0.05), params, device="cpu")
+    s.iterate(2, verbose=False)
+    assert np.isfinite(s.cost_lst).all() and len(s.cost_lst) == 3
+    assert not torch.equal(s.u_trj, s.u_trj_lst[0])
+    if field != "forward_mode":
+        ref = tmpc.IrsMpc(tmpc.make_pendulum(0.05),
+                          _params(tmpc, "exact", T=10), device="cpu")
+        ref.iterate(2, verbose=False)
+        np.testing.assert_allclose(s.cost_lst, ref.cost_lst, rtol=1e-4)
 
 
 # Bounded pendulum solves (boxed ADMM, clipped feedback rollout): the

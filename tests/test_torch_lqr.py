@@ -134,12 +134,21 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 
 def test_riccati_backend_other_than_auto_raises():
+    """"assoc" solves (the associative scan, ``tests/test_torch_assoc.py``)
+    on either entry point; a backend the port does not have, such as the
+    JAX package's "pallas", raises ValueError."""
     _, tprob = _both("tracking")
+    ref = tlqr.riccati_backward_plain(tprob)
+    before = cuda_riccati.LAUNCHES
     for fn in (tlqr.riccati_backward, tlqr.lqr_solve):
-        with pytest.raises(NotImplementedError):
-            fn(tprob, backend="assoc")
+        out = fn(tprob, backend="assoc")
+        gains = out if fn is tlqr.riccati_backward else out[2]
+        assert gains.P.shape == ref.P.shape
+        np.testing.assert_allclose(gains.K.numpy(), ref.K.numpy(),
+                                   rtol=5e-3, atol=5e-3)
         with pytest.raises(ValueError):
             fn(tprob, backend="pallas")
+    assert cuda_riccati.LAUNCHES == before
 
 
 def test_problem_from_numpy_and_split_augmented():
