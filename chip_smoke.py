@@ -55,8 +55,10 @@ exit code:
    canonicalised duals, 8 iterations): initial cost 786.3928 within 0.1%,
    best at most 12% above 317.41, the same launches; then the same solver
    without its whole-chain rollout (the per-knot warm chain), for its curve;
-12. profiles a box-pushing iteration: each phase synchronised, then the
-   device's busy share and kernels under ``torch.profiler``;
+12. profiles a box-pushing iteration: each phase synchronised and timed
+   by ``utils.timing.PhaseTimer``, then the device's busy share and
+   kernels in one ``utils.timing.profile_trace`` session, whose Chrome
+   trace (``irs_mpc_torch/_build/trace/``) must name K4's kernel;
 13. holds K3 and K1 against their plain versions on the trajectory QP of
    the carrots slice's first iteration (T=10, n=45+5, m=5, u box, 20
    sweeps), then drives the carrots slice (45 dof, 500 contact rows, 30
@@ -106,7 +108,19 @@ exit code:
    zero-order swing-ups through it (1 K1 an iteration), seeds 0-7, their
    medians held to the JAX package's;
 22. a one-rank NCCL group: the five modes' estimates on a 2 x 2 mesh of
-   the card against single-device ones, and the pendulum on the mesh.
+   the card against single-device ones, and the pendulum on the mesh;
+23. box pushing on the LCP contact model: K2 against the plain PDIP on the
+   two calls of its first zero_order_AB iteration (rows of separated
+   pairs masked to 0 dq <= 1), then that curve at its 21 descents under
+   the curve runner's rule (``irs_mpc_torch/examples/run_all.py``), 2 K2,
+   1 K1, 1 K3 and no K4 an iteration; the pendulum slice checkpointed
+   after 2 iterations and resumed for 3, equal bit for bit to 5 straight;
+   ``utils.config.make_system("box_pushing", 0.1, contact_model="lcp")``
+   on the card: no reaction at an open gap.
+
+The example configurations are built by ``irs_mpc_torch/examples/``; this
+script keeps its names for them (``planar_hand_solver`` and so on, the
+device first).
 
 Each phase prints its wall seconds.  K1's rows time it with the plan, as
 every path calls it (``lqr_solve``); K2's name the lanes of its tile a
@@ -117,27 +131,36 @@ lines are a JSON summary of the kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
 import collections
-import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from irs_mpc_torch import (CemParams, CrossEntropyMethod, IrsMpc,
-                           IrsMpcParams, Mbp2DModel, SmoothingConfig,
-                           make_bicycle, make_box_pivoting, make_box_pushing,
-                           make_carrots, make_pendulum, make_planar_hand,
-                           make_plate_pickup, make_quadrotor,
-                           make_three_cart, train_mlp_dynamics)
+from irs_mpc_torch import (IrsMpc, IrsMpcParams, SmoothingConfig,
+                           make_box_pivoting, make_box_pushing, make_pendulum,
+                           make_planar_hand, make_plate_pickup,
+                           make_quadrotor, make_three_cart)
+from irs_mpc_torch.examples import (bicycle, box_pivoting, box_pushing,
+                                    box_pushing_cem as box_pushing_cem_ex,
+                                    box_pushing_second_order, carrots,
+                                    common, pendulum, pendulum_nn,
+                                    planar_hand,
+                                    planar_hand_cem as planar_hand_cem_ex,
+                                    planar_hand_second_order, plate_pickup,
+                                    quadrotor, three_cart)
 from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
                                           quasistatic, rollout)
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
+from irs_mpc_torch.tools import kernel_inputs
+from irs_mpc_torch.tools.kernel_inputs import bench_problem, capture
+from irs_mpc_torch.utils.timing import PhaseTimer, card_line, profile_trace
 
 REL_TOL = 1e-3          # max|ΔK| / max|K|, the same for k, x and u
 INITIAL_COST = 1856.1541
@@ -159,18 +182,15 @@ BOX_PIVOTING_T, BOX_PIVOTING_INITIAL, BOX_PIVOTING_BEST = 40, 786.3928, 317.41
 # Carrots at its golden's 3 descents (tests/test_golden_contact.py:65-73).
 CARROTS_T, CARROTS_S, CARROTS_ITERATIONS = 10, 30, 3
 CARROTS_INITIAL, CARROTS_BEST = 211.8252, 172.98
-# Plate pickup at its golden's 8 descents (tests/test_golden_contact.py:38).
-# Its 8-descent best depends on the random stream: on some streams the line
-# search stalls near 3.6-4.1 for the rest of the descents (the JAX package
-# on the CPU, seeds 0-5: 3.197, 3.304, 3.185, 3.206, 3.683, 3.339).  On the
-# card, seeds 0-31 (irs_mpc_torch/tools/probe_plate_seeds.py): median
-# 3.4486 and 23 of 32 within 12 % with K2, median 3.4679 and 23 of 32 with
-# the plain PDIP on the same streams, so the spread is the descent's, not
-# K2's.  The golden is held on the median best over seeds 0-15 of the
-# solver's own stream (3.5258 with K2, 3.5229 plain: a 2 % margin to the
-# bound; about 140 s of the smoke).
-PLATE_T, PLATE_S, PLATE_ITERATIONS = 30, 100, 8
-PLATE_INITIAL, PLATE_BEST, PLATE_SEEDS = 482.9550, 3.216, tuple(range(16))
+# Plate pickup at its golden's 8 descents (tests/test_golden_contact.py:38),
+# held on the median best over seeds 0-15 of the solver's own stream
+# (``examples/plate_pickup.py``'s GOLDEN_*: its best depends on the stream;
+# 3.5258 with K2, 3.5229 plain, a 2 % margin to the bound; about 140 s of
+# the smoke).
+PLATE_T, PLATE_S = 30, 100
+PLATE_ITERATIONS, PLATE_INITIAL, PLATE_BEST, PLATE_SEEDS = (
+    plate_pickup.GOLDEN_ITERATIONS, plate_pickup.GOLDEN_INITIAL,
+    plate_pickup.GOLDEN_BEST, plate_pickup.GOLDEN_SEEDS)
 # Resolve mode (tests/test_irs_mpc.py:137-154): the pendulum with a binding
 # input box, held within 20 % of the feedback mode's best after 8
 # iterations; then the planar hand, 2 iterations.
@@ -180,7 +200,6 @@ RESOLVE_U_MAX, RESOLVE_BEST_RTOL, HAND_RESOLVE_ITERATIONS = 2.0, 0.2, 2
 # minima within 12 % (examples/analysis/*_zero_order.csv).
 QUAD_T, QUAD_S, QUAD_ITERATIONS, QUAD_INITIAL = 200, 1000, 7, 178342.25
 CART_T, CART_S, CART_ITERATIONS, CART_INITIAL = 100, 1000, 20, 631.3722
-ANALYSIS = Path(__file__).resolve().parent / "examples" / "analysis"
 # The CEM baseline on the card: (label, builder, iterations, the initial
 # cost in float32, the committed curve, K4 launches an iteration, whether
 # the best is held one-sided to 1.12 x the curve's last value).  The
@@ -249,7 +268,8 @@ MBP_PATHS = (
      "planar_hand_second_zero_order_B", False, 1, None),
     ("planar_hand_second_torque", "planar_hand_second_solver",
      dict(control_mode="torque"), 812.3893, "planar_hand_second_torque",
-     False, 6, 69.9292),
+     False, len(planar_hand_second_order.TORQUE_SEEDS),
+     planar_hand_second_order.TORQUE_JAX_MEDIAN),
     ("box_pushing_second_order", "box_pushing_second_solver", {}, 287.9763,
      "box_pushing_second_order_position", False, 1, None),
 )
@@ -294,13 +314,6 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
 def median_ms(fn, reps):
     """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
     fn()
@@ -338,277 +351,56 @@ def pendulum_problems():
             lqr.build_delta_u_problem(*args, torch.tensor([0], device=dev)))
 
 
-def bench_problem(T=T):
-    """The random T=200, n=16, m=4 tracking problem, made from numpy seed 1
-    by the construction of the JAX package's Riccati benchmark."""
-    n, m = 16, 4
-    rng = np.random.RandomState(1)
+# ---------------------------------------------------------------------------
+# The example configurations (irs_mpc_torch/examples/), called as the phases
+# and the tests call them: the device first, then keywords
+# ---------------------------------------------------------------------------
 
-    def f(a):
-        return torch.tensor(a, dtype=torch.float32, device=DEVICE)
-
-    A = f(np.eye(n)[None] + 0.05 * rng.randn(T, n, n))
-    B = f(0.3 * rng.randn(T, n, m))
-    c = f(0.05 * rng.randn(T, n))
-    x0 = f(rng.randn(n))
-    return lqr.build_tracking_problem(
-        A, B, c, f(np.eye(n)), f(10.0 * np.eye(n)), f(np.eye(m)), x0,
-        f(np.zeros((T + 1, n))))
+def _device_first(build, **defaults):
+    def builder(device, **kw):
+        return build(device=device, **dict(defaults, **kw))
+    builder.__doc__ = build.__doc__
+    return builder
 
 
-HAND_Q0 = {"sphere": np.array([0.0, 0.35, 0.0]),
-           "arm_left": np.array([-np.pi / 4, -np.pi / 4]),
-           "arm_right": np.array([np.pi / 4, np.pi / 4])}
-
-
-def planar_hand_solver(device, T=HAND_T, num_samples=HAND_S,
-                       forward_mode="feedback"):
-    """The planar-hand configuration of the JAX package's benchmark and
-    example (``bench.py::build_planar_hand_solver``): Δu mode, trust-region
-    input boxes of +-0.5h, zero_order_B with decoupled A/B, boxed ADMM at
-    12 over-relaxed sweeps, and the 15-iteration estimation surrogate."""
-    model = make_planar_hand(h=0.1)
-    idx_u = model.indices_u_into_x()
-    q0 = HAND_Q0
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({
-        "sphere": q0["sphere"] + np.array([0.3, -0.1, 0.5]),
-        "arm_left": q0["arm_left"], "arm_right": q0["arm_right"]})
-    Q_dict = {"sphere": np.array([1e-3, 1e-3, 10.0]),
-              "arm_left": np.array([1e-3, 1e-3]),
-              "arm_right": np.array([1e-3, 1e-3])}
-    params = IrsMpcParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"arm_left": 5 * np.ones(2),
-                                   "arm_right": 5 * np.ones(2)}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        u_bounds_abs=np.array([-np.ones(4) * 0.5 * model.h,
-                               np.ones(4) * 0.5 * model.h]),
-        bounds_trust_region=True, indices_u_into_x=idx_u,
-        unactuated_indices=np.array([0, 1, 2]),
-        gradient_mode="zero_order_B", decouple_AB=True,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.3, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
-        admm_iters=12, admm_over_relax=1.6, report_final_cost_with_Q=False,
-        estimation_system=model.estimation_surrogate(),
-        forward_mode=forward_mode)
-    return IrsMpc(model.system(), params, device=device), model
-
-
-def box_pushing_solver(device, T=BOX_PUSHING_T, num_samples=BOX_S):
-    """The box-pushing configuration of the JAX package's example
-    (``examples/box_pushing.py``): box at (0, 0.5, 0), hand at (0, -0.2),
-    goal box +(0.5, 0.5, -pi/4), running cost only (Qd = 0), Δu mode,
-    relative input bounds of +-0.4h, zero_order_B with decoupled A/B,
-    std_u 0.3 decayed by 0.3**it / 0.3, 30 ADMM sweeps and the
-    15-iteration estimation surrogate."""
-    model = make_box_pushing(h=0.1)
-    idx_u = model.indices_u_into_x()
-    q0 = {"box": np.array([0.0, 0.5, 0.0]), "hand": np.array([0.0, -0.2])}
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({
-        "box": q0["box"] + np.array([0.5, 0.5, -np.pi / 4]),
-        "hand": q0["hand"]})
-    Q_dict = {"box": np.array([3.0, 3.0, 1.2]), "hand": np.zeros(2)}
-    params = IrsMpcParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 0 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"hand": 1e1 * np.ones(2)}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        u_bounds_rel=np.array([-np.ones(2) * 0.4 * model.h,
-                               np.ones(2) * 0.4 * model.h]),
-        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
-        gradient_mode="zero_order_B", decouple_AB=True,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.3, std_x=1e-3,
-            decay=lambda it: 0.3 ** it / 0.3, decay_std_x=False),
-        admm_iters=30, report_final_cost_with_Q=False,
-        estimation_system=model.estimation_surrogate())
-    return IrsMpc(model.system(), params, device=device), model
-
-
-def box_pivoting_solver(device, T=BOX_PIVOTING_T, num_samples=BOX_S):
-    """The box-pivoting configuration of the JAX package's example
-    (``examples/box_pivoting.py``): box resting against the wall at
-    (0.45, 0.5, 0), hand at (-0.17, 0.8), goal a -30 degree pivot about the
-    bottom corner at the wall, Δu mode, trust-region input boxes of
-    +-0.6h, zero_order_B with decoupled A/B, std_u 0.1 decayed by
-    1/it**0.8, 30 ADMM sweeps and the 15-iteration estimation surrogate;
-    the model canonicalises its warm duals."""
-    model = make_box_pivoting(h=0.05)
-    idx_u = model.indices_u_into_x()
-    q0 = {"box": np.array([0.45, 0.5, 0.0]), "hand": np.array([-0.17, 0.8])}
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({"box": np.array([0.767, 0.683,
-                                                   -np.pi / 6]),
-                                  "hand": q0["hand"]})
-    Q_dict = {"box": np.array([1.0, 1.0, 20.0]),
-              "hand": np.array([1e-4, 1e-4])}
-    params = IrsMpcParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"hand": np.array([0.5, 0.5])}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        u_bounds_abs=np.array([-np.ones(2) * 0.6 * model.h,
-                               np.ones(2) * 0.6 * model.h]),
-        bounds_trust_region=True,
-        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
-        gradient_mode="zero_order_B", decouple_AB=True,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.1, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
-        admm_iters=30, report_final_cost_with_Q=False,
-        estimation_system=model.estimation_surrogate())
-    return IrsMpc(model.system(), params, device=device), model
-
-
-def carrots_solver(device, T=CARROTS_T, num_samples=CARROTS_S,
-                   n_pieces=20):
-    """The carrots configuration of the JAX package's example
-    (``examples/carrots.py:15-68``): a 5-dof gripper and 20 pieces on the
-    ground (45 dof, 500 contact rows), h=1.0, the gripper's reference
-    sweeping through the pile, Δu mode, trust-region input boxes of ±0.15,
-    zero_order_B with decoupled A/B, std_u 0.1 decayed by 1/it**0.8, 20
-    ADMM sweeps, and no estimation surrogate.  The model is past K2's and
-    K4's limits, so an iteration launches K1 and K3 (n = 45 + 5, m = 5)
-    and runs its contact solves as plain batched PyTorch."""
-    model = make_carrots(n_pieces=n_pieces, h=1.0)
-    idx_u = model.indices_u_into_x()
-    rng = np.random.RandomState(0)
-    q0 = {"gripper": np.array([-0.85, 0.22, 0.0, -0.05, -0.05])}
-    for k in range(n_pieces):
-        q0[f"carrot_{k}"] = np.array([rng.uniform(-0.6, 0.2), 0.05])
-    x0 = model.get_x_from_q_dict(q0)
-    xd_rows = []
-    for t in range(T + 1):
-        frac = t / max(T, 1)
-        xd = {"gripper": np.array([-0.85 + 1.25 * frac, 0.22, 0.0, -0.05,
-                                   -0.05])}
-        for k in range(n_pieces):
-            xd[f"carrot_{k}"] = np.array([0.4, 0.05])
-        xd_rows.append(model.get_x_from_q_dict(xd))
-    Q_dict = {"gripper": np.array([2.0, 0.5, 0.1, 0.1, 0.1])}
-    for k in range(n_pieces):
-        Q_dict[f"carrot_{k}"] = np.array([1.0, 0.1])
-    params = IrsMpcParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 10 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"gripper": np.full(5, 0.5)}),
-        x0=x0, xd_trj=np.stack(xd_rows),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        u_bounds_abs=np.array([-np.full(5, 0.15), np.full(5, 0.15)]),
-        bounds_trust_region=True, indices_u_into_x=idx_u,
-        unactuated_indices=np.arange(5, 5 + 2 * n_pieces),
-        gradient_mode="zero_order_B", decouple_AB=True,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.1, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
-        admm_iters=20, report_final_cost_with_Q=False)
-    return IrsMpc(model.system(), params, device=device), model
-
-
-def plate_pickup_solver(device, T=PLATE_T, num_samples=PLATE_S,
-                        gradient_mode="zero_order_B", seed=0):
-    """The plate-pickup configuration of the JAX package's example
-    (``examples/plate_pickup.py:17-74``): a gripper (5 dof, two prismatic
-    fingers) over a plate on the ground, a staged reference (squeeze in
-    the first third, then lift 0.3), Δu mode, relative input bounds of
-    +-0.06, zero_order_B with decoupled A/B, std_u 0.1 decayed by
-    1/it**0.8, 30 ADMM sweeps and the 15-iteration estimation surrogate.
-    ``chain_gate`` keeps K4 off its prismatic fingers, as in the JAX
-    package, so its line search runs the plain warm chain."""
-    model = make_plate_pickup(h=0.1)
-    idx_u = model.indices_u_into_x()
-    q0 = {"plate": np.array([0.0, 0.04, 0.0]),
-          "gripper": np.array([0.0, 0.30, 0.0, -0.16, -0.16])}
-    x0 = model.get_x_from_q_dict(q0)
-    T1 = T // 3
-    xd_rows = []
-    for t in range(T + 1):
-        lift = 0.0 if t <= T1 else 0.3 * (t - T1) / max(T - T1, 1)
-        xd_rows.append(model.get_x_from_q_dict({
-            "plate": np.array([0.0, 0.04 + lift, 0.0]),
-            "gripper": np.array([0.0, 0.30 + lift, 0.0, 0.02, 0.02])}))
-    Q_dict = {"plate": np.array([1.0, 50.0, 5.0]),
-              "gripper": np.array([0.1, 0.1, 0.1, 0.5, 0.5])}
-    params = IrsMpcParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"gripper": np.array([1.0, 1.0, 1.0, 0.2,
-                                                        0.2])}),
-        x0=x0, xd_trj=np.stack(xd_rows),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        u_bounds_rel=np.array([-np.ones(5) * 0.06, np.ones(5) * 0.06]),
-        indices_u_into_x=idx_u, unactuated_indices=np.array([0, 1, 2]),
-        gradient_mode=gradient_mode, decouple_AB=True,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.1, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
-        admm_iters=30, report_final_cost_with_Q=False,
-        estimation_system=model.estimation_surrogate(), seed=seed)
-    return IrsMpc(model.system(), params, device=device), model
-
-
-def helix_xd(T):
-    """The quadrotor's rising helix (1.5 cos 0.05i, 1.5 sin 0.05i,
-    0.02i)."""
-    i = np.arange(T + 1)
-    xd = np.zeros((T + 1, 12))
-    xd[:, 0], xd[:, 1], xd[:, 2] = (1.5 * np.cos(0.05 * i),
-                                    1.5 * np.sin(0.05 * i), 0.02 * i)
-    return xd
+planar_hand_solver = _device_first(planar_hand.build_solver)
+box_pushing_solver = _device_first(box_pushing.build_solver)
+box_pivoting_solver = _device_first(box_pivoting.build_solver)
+carrots_solver = _device_first(carrots.build_solver)
+plate_pickup_solver = _device_first(plate_pickup.build_solver)
+planar_hand_second_solver = _device_first(
+    planar_hand_second_order.build_solver)
+planar_hand_second_cem = _device_first(
+    planar_hand_second_order.build_cem_solver)
+box_pushing_second_solver = _device_first(
+    box_pushing_second_order.build_solver)
+planar_hand_cem = _device_first(planar_hand_cem_ex.build_solver)
+box_pushing_cem = _device_first(box_pushing_cem_ex.build_solver)
+box_pivoting_cem = _device_first(box_pivoting.build_cem_solver)
+pendulum_cem = _device_first(pendulum.build_cem_solver)
+bicycle_cem = _device_first(bicycle.build_cem_solver, hard=True)
+pendulum_params = pendulum.build_params
+pendulum_nn_params = pendulum_nn.build_params
+learned_pendulum = pendulum_nn.learned_pendulum
+HAND_Q0 = planar_hand.Q0
 
 
 def quadrotor_solver(device, T=QUAD_T, num_samples=QUAD_S):
-    """The quadrotor configuration of the JAX package's example
-    (``examples/quadrotor.py:27-44``, zero-order): h=0.05, the rising
-    helix, Q = diag(10 x6, 0 x6), Qd = 10 diag(10 x6, 1 x6), R = I, hover
-    inputs 2.0, std 0.1 decayed by 1/sqrt(it), no bounds."""
-    params = IrsMpcParams(
-        Q=np.diag([10.] * 6 + [0.] * 6), Qd=10.0 * np.diag([10.] * 6
-                                                         + [1.] * 6),
-        R=np.eye(4), x0=np.zeros(12), xd_trj=helix_xd(T),
-        u_trj_init=np.tile([2.0] * 4, (T, 1)), gradient_mode="zero_order",
-        smoothing=SmoothingConfig(num_samples=num_samples, std_x=0.1,
-                                  std_u=0.1))
-    return IrsMpc(make_quadrotor(0.05), params, device=device)
+    """``examples/quadrotor.py:27-44``, zero-order."""
+    return IrsMpc(make_quadrotor(0.05), quadrotor.build_params(
+        "zero_order", T, num_samples), device=device)
 
 
 def three_cart_solver(device, T=CART_T, num_samples=CART_S):
-    """The three-cart configuration of the JAX package's example
-    (``examples/three_cart.py:19-38``): h=0.05, carts from (0, 1, 2) to
-    +2 each (the middle one unactuated), Q = 0.01 diag(50, 50, 50, 20,
-    100, 20), Qd = 100 Q, R = 0.01 I, an input box of +-1000, zero-order
-    with the samples projected onto the non-penetration set, std
-    (4.0, 0.5) decayed by 1/it**0.2."""
-    w = np.array([50., 50., 50., 20., 100., 20.])
-    params = IrsMpcParams(
-        Q=0.01 * np.diag(w), Qd=np.diag(w), R=0.01 * np.diag([1., 1.]),
-        x0=np.array([0., 1., 2., 0., 0., 0.]),
-        xd_trj=np.tile([2., 3., 4., 0., 0., 0.], (T + 1, 1)),
-        u_trj_init=np.tile([0.1, -0.1], (T, 1)),
-        u_bounds_abs=np.array([[-1000., -1000.], [1000., 1000.]]),
-        gradient_mode="zero_order",
-        smoothing=SmoothingConfig(num_samples=num_samples, std_x=4.0,
-                                  std_u=0.5,
-                                  decay=lambda it: 1.0 / it ** 0.2))
-    return IrsMpc(make_three_cart(0.05), params, device=device)
+    """``examples/three_cart.py:19-38``."""
+    return IrsMpc(make_three_cart(0.05), three_cart.build_params(
+        T, num_samples), device=device)
 
 
-def pendulum_params(gradient_mode, T=T, num_samples=NUM_SAMPLES, **kw):
-    """The pendulum slice's swing-up (``bench.py::bench_pendulum``, std 1
-    a sample)."""
-    return IrsMpcParams(
-        Q=np.diag([1., 1.]), Qd=np.diag([20., 20.]), R=np.diag([1.]),
-        x0=np.zeros(2), xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
-        u_trj_init=np.tile([0.1], (T, 1)), gradient_mode=gradient_mode,
-        smoothing=SmoothingConfig(num_samples=num_samples, std_x=1.0,
-                                  std_u=1.0), **kw)
+def first_iteration_inputs(solver_fn=planar_hand_solver, rollouts=1):
+    """``kernel_inputs.first_iteration_inputs``, the planar hand's by
+    default."""
+    return kernel_inputs.first_iteration_inputs(solver_fn, rollouts, DEVICE)
 
 
 def pendulum_resolve_params(forward_mode, T=RESOLVE_T):
@@ -620,281 +412,6 @@ def pendulum_resolve_params(forward_mode, T=RESOLVE_T):
         u_trj_init=np.tile([0.1], (T, 1)),
         u_bounds_abs=np.array([[-2.0], [2.0]]), gradient_mode="exact",
         admm_iters=40, forward_mode=forward_mode)
-
-
-# ---------------------------------------------------------------------------
-# The second-order (mbp2d) configurations of the JAX package's examples
-# ---------------------------------------------------------------------------
-
-MBP_HAND_Q0 = np.array([0., 0.35, 0., -np.pi / 4, -np.pi / 4, np.pi / 4,
-                        np.pi / 4], np.float32)
-
-
-def mbp_planar_hand(control_mode):
-    """``examples/planar_hand_second_order.py:33-36``: the planar hand at
-    h=0.1 with arm masses (0.5, 0.3) a side and damping 0.5."""
-    return Mbp2DModel(base=make_planar_hand(h=0.1),
-                      actuated_mass=(0.5, 0.3, 0.5, 0.3),
-                      control_mode=control_mode, damping=0.5)
-
-
-def planar_hand_second_solver(device, control_mode="position",
-                              gradient_mode="zero_order_B", spin=False,
-                              T=30, num_samples=50, seed=0):
-    """``examples/planar_hand_second_order.py:42-108``.  Position mode: the
-    ball translated by (0.3, -0.1) (``spin`` adds a -pi/4 turn at weight
-    0.1), Δu cost with R = 5 I, trust-region input boxes of +-0.5, a
-    constant squeeze command, std_u 0.1 decayed by 1/it**0.8 and A from
-    averaged first-order Jacobians in zero_order_B.  Torque mode: the spin
-    task, plain u'Ru cost with R = 0.05 I, an absolute box of +-10, std_u
-    0.4 decayed by 0.4**(0.5 it)/0.4.  30 ADMM sweeps, no estimation
-    surrogate."""
-    mbp = mbp_planar_hand(control_mode)
-    nq = mbp.nq
-    x0 = np.concatenate([MBP_HAND_Q0, np.zeros(nq)])
-    qd = MBP_HAND_Q0.copy()
-    if control_mode == "position":
-        qd[0:2] += np.array([0.3, -0.1])
-        Qq = np.array([10., 10., 1e-3, 1e-3, 1e-3, 1e-3, 1e-3])
-        if spin:
-            qd[2] = -np.pi / 4
-            Qq[2] = 0.1
-        u0 = np.array([-np.pi / 2 + 0.5] * 2 + [np.pi / 2 - 0.5] * 2,
-                      np.float32)
-        extra = dict(indices_u_into_x=mbp.indices_u_into_x(),
-                     u_bounds_abs=np.array([-np.ones(4) * 0.5,
-                                            np.ones(4) * 0.5]),
-                     bounds_trust_region=True, R=np.eye(4) * 5.0)
-        smoothing = SmoothingConfig(
-            num_samples=num_samples, std_u=0.1, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False,
-            damp=3e-3, zero_order_B_A_source="first_order")
-    else:
-        qd[2] = -np.pi / 4
-        Qq = np.array([10., 10., 10., 0., 0., 0., 0.])
-        u0 = np.zeros(4, np.float32)
-        extra = dict(u_bounds_abs=np.array([-np.ones(4) * 10.0,
-                                            np.ones(4) * 10.0]),
-                     R=np.eye(4) * 0.05)
-        smoothing = SmoothingConfig(
-            num_samples=num_samples, std_u=0.4, std_x=1e-3,
-            decay=lambda it: 0.4 ** (0.5 * it) / 0.4, decay_std_x=False,
-            damp=3e-3, zero_order_B_A_source="first_order")
-    Q = np.diag(np.concatenate([Qq, np.zeros(nq)]).astype(np.float32))
-    xd = np.concatenate([qd, np.zeros(nq)])
-    params = IrsMpcParams(
-        Q=Q, Qd=Q * 100, x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(u0, (T, 1)),
-        unactuated_indices=np.array([0, 1, 2]), gradient_mode=gradient_mode,
-        smoothing=smoothing, admm_iters=30, report_final_cost_with_Q=False,
-        seed=seed, **extra)
-    return IrsMpc(mbp.system(), params, device=device), mbp
-
-
-def planar_hand_second_cem(device, T=30, batch_size=16000, n_elite=160):
-    """``examples/planar_hand_second_order.py:111-166``, position mode: the
-    translate task of ``planar_hand_second_solver``, Δu cost, 16000
-    candidates, 160 elites, initial std 0.15, std floor 0.01, AR(1) noise
-    at 0.7, momentum 0.1, 20 persisted elites."""
-    mbp = mbp_planar_hand("position")
-    nq = mbp.nq
-    x0 = np.concatenate([MBP_HAND_Q0, np.zeros(nq)])
-    qd = MBP_HAND_Q0.copy()
-    qd[0:2] += np.array([0.3, -0.1])
-    Qq = np.array([10., 10., 1e-3, 1e-3, 1e-3, 1e-3, 1e-3])
-    idx_u = mbp.indices_u_into_x()
-    Q = np.diag(np.concatenate([Qq, np.zeros(nq)]).astype(np.float32))
-    xd = np.concatenate([qd, np.zeros(nq)])
-    params = CemParams(
-        Q=Q, Qd=Q * 100, x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        n_elite=n_elite, batch_size=batch_size,
-        report_final_cost_with_Q=False, indices_u_into_x=idx_u,
-        R=np.eye(4) * 5.0, u_trj_init=np.tile(MBP_HAND_Q0[idx_u], (T, 1)),
-        initial_std=np.ones(4) * 0.15, noise_beta=0.7, momentum=0.1,
-        elite_keep=max(1, n_elite // 8), std_floor=np.ones(4) * 0.01)
-    return CrossEntropyMethod(mbp.system(), params, device=device), mbp
-
-
-def box_pushing_second_solver(device, num_samples=50, T=60,
-                              gradient_mode="zero_order_AB", seed=0):
-    """``examples/box_pushing_second_order.py:17-55``: box pushing at
-    h=0.05 with the pusher's mass 0.3 and damping 1, the hand nearly
-    touching the box, goal +(0.3, 0.3), Δu cost with R = I, trust-region
-    boxes of +-0.04, zero_order_AB with damping 1e-5, std_u 0.1 decayed by
-    1/it**0.8, 25 ADMM sweeps."""
-    mbp = Mbp2DModel(base=make_box_pushing(h=0.05), actuated_mass=(0.3, 0.3),
-                     control_mode="position", damping=1.0)
-    nq = mbp.nq
-    q0 = np.array([0.0, 0.5, 0.0, 0.0, -0.11], np.float32)
-    x0 = np.concatenate([q0, np.zeros(nq)])
-    qd = np.array([0.3, 0.8, 0.0, 0.0, -0.11], np.float32)
-    xd = np.concatenate([qd, np.zeros(nq)])
-    Q = np.diag(np.concatenate([np.array([10.0, 10.0, 10.0, 1e-4, 1e-4]),
-                                np.full(nq, 1e-4)]))
-    idx_u = mbp.indices_u_into_x()
-    params = IrsMpcParams(
-        Q=Q, Qd=Q * 100, R=np.eye(2) * 1.0,
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(q0[idx_u], (T, 1)), indices_u_into_x=idx_u,
-        u_bounds_abs=np.array([-np.ones(2) * 0.04, np.ones(2) * 0.04]),
-        bounds_trust_region=True, unactuated_indices=np.array([0, 1, 2]),
-        gradient_mode=gradient_mode,
-        smoothing=SmoothingConfig(
-            num_samples=num_samples, std_u=0.1, std_x=1e-3,
-            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False,
-            damp=1e-5),
-        admm_iters=25, report_final_cost_with_Q=False, seed=seed)
-    return IrsMpc(mbp.system(), params, device=device), mbp
-
-
-def pendulum_nn_params(gradient_mode, T=100, num_samples=500, **kw):
-    """``examples/pendulum_nn.py:22-32``: the swing-up at T=100, 500
-    samples a knot, std 0.5."""
-    return IrsMpcParams(
-        Q=np.diag([1., 1.]), Qd=np.diag([20., 20.]), R=np.diag([1.]),
-        x0=np.zeros(2), xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
-        u_trj_init=np.tile([0.1], (T, 1)), gradient_mode=gradient_mode,
-        smoothing=SmoothingConfig(num_samples=num_samples, std_x=0.5,
-                                  std_u=0.5), **kw)
-
-
-def learned_pendulum(device, seed=0, num_transitions=20_000, epochs=600,
-                     T=100, num_samples=500, iterations=10,
-                     modes=("exact", "zero_order"), drive=None):
-    """``examples/pendulum_nn.py``: an MLP (64, 64) trained on
-    ``num_transitions`` random transitions of the pendulum for ``epochs``
-    Adam steps (``seed``), then each mode's swing-up through it for
-    ``iterations`` (run by ``drive(label, solver, iterations)`` if given),
-    its best plan rolled out on the true pendulum.  Returns (the training
-    loss, {mode: (solver, the plan's cost on the true dynamics)})."""
-    true_sys = make_pendulum(0.05)
-    nn_sys = train_mlp_dynamics(true_sys, num_transitions, hidden=(64, 64),
-                                epochs=epochs, seed=seed, device=device)
-    out = {}
-    for mode in modes:
-        solver = IrsMpc(nn_sys, pendulum_nn_params(mode, T, num_samples),
-                        device=device)
-        if drive is None:
-            solver.iterate(iterations, verbose=False)
-        else:
-            drive(f"learned pendulum {mode}", solver, iterations)
-        u = solver.u_trj_best
-        x_true = true_sys.rollout(solver.x0, u)
-        out[mode] = (solver, float(solver.eval_cost(x_true, u)[0]))
-    return nn_sys.final_loss, out
-
-
-# ---------------------------------------------------------------------------
-# The CEM baseline's configurations, those of the JAX package's examples
-# ---------------------------------------------------------------------------
-
-def planar_hand_cem(device, T=30, batch_size=2000, n_elite=100):
-    """``examples/planar_hand_cem.py:14-63``: the planar-hand task of
-    ``planar_hand_solver``, 2000 candidates, 100 elites, initial std 0.25,
-    std floor 0.02, momentum 0.3, AR(1) noise at 0.85, 10 persisted
-    elites, Δu cost."""
-    model = make_planar_hand(h=0.1)
-    idx_u = model.indices_u_into_x()
-    q0 = HAND_Q0
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({
-        "sphere": q0["sphere"] + np.array([0.3, -0.1, 0.5]),
-        "arm_left": q0["arm_left"], "arm_right": q0["arm_right"]})
-    Q_dict = {"sphere": np.array([1e-3, 1e-3, 10.0]),
-              "arm_left": np.array([1e-3, 1e-3]),
-              "arm_right": np.array([1e-3, 1e-3])}
-    params = CemParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"arm_left": 5 * np.ones(2),
-                                   "arm_right": 5 * np.ones(2)}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        n_elite=n_elite, batch_size=batch_size,
-        initial_std=np.ones(4) * 0.25, std_floor=np.float32(0.02),
-        momentum=0.3, noise_beta=0.85, elite_keep=min(10, n_elite),
-        indices_u_into_x=idx_u, report_final_cost_with_Q=False)
-    return CrossEntropyMethod(model.system(), params, device=device), model
-
-
-def box_pushing_cem(device, T=60, batch_size=100, n_elite=5):
-    """``examples/box_pushing_cem.py:16-43``: the box-pushing task of
-    ``box_pushing_solver``, 100 candidates, 5 elites, initial std 0.2,
-    Δu cost."""
-    model = make_box_pushing(h=0.1)
-    idx_u = model.indices_u_into_x()
-    q0 = {"box": np.array([0.0, 0.5, 0.0]), "hand": np.array([0.0, -0.2])}
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({
-        "box": q0["box"] + np.array([0.5, 0.5, -np.pi / 4]),
-        "hand": q0["hand"]})
-    Q_dict = {"box": np.array([3.0, 3.0, 1.2]), "hand": np.zeros(2)}
-    params = CemParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 0 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"hand": 1e1 * np.ones(2)}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        n_elite=n_elite, batch_size=batch_size,
-        initial_std=np.ones(2) * 0.2, indices_u_into_x=idx_u,
-        report_final_cost_with_Q=False)
-    return CrossEntropyMethod(model.system(), params, device=device), model
-
-
-def box_pivoting_cem(device, T=40, batch_size=100, n_elite=5):
-    """``examples/box_pivoting.py:63-102``: the box-pivoting task of
-    ``box_pivoting_solver``, 100 candidates, 5 elites, initial std 0.05,
-    Δu cost, on the model WITHOUT the canonical warm duals that the iRS
-    factory opts into (the JAX example's choice for its CEM)."""
-    model = dataclasses.replace(make_box_pivoting(h=0.05),
-                                canon_warm_duals=False)
-    idx_u = model.indices_u_into_x()
-    q0 = {"box": np.array([0.45, 0.5, 0.0]), "hand": np.array([-0.17, 0.8])}
-    x0 = model.get_x_from_q_dict(q0)
-    xd = model.get_x_from_q_dict({"box": np.array([0.767, 0.683,
-                                                   -np.pi / 6]),
-                                  "hand": q0["hand"]})
-    Q_dict = {"box": np.array([1.0, 1.0, 20.0]),
-              "hand": np.array([1e-4, 1e-4])}
-    params = CemParams(
-        Q=model.get_Q_from_Q_dict(Q_dict),
-        Qd=model.get_Q_from_Q_dict({k: v * 100 for k, v in Q_dict.items()}),
-        R=model.get_R_from_R_dict({"hand": np.array([0.5, 0.5])}),
-        x0=x0, xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile(x0[idx_u], (T, 1)),
-        n_elite=n_elite, batch_size=batch_size,
-        initial_std=np.ones(2) * 0.05, indices_u_into_x=idx_u,
-        report_final_cost_with_Q=False)
-    return CrossEntropyMethod(model.system(), params, device=device), model
-
-
-def pendulum_cem(device, T=200, batch_size=8000, n_elite=80):
-    """``examples/pendulum.py:49-55``: the swing-up of the pendulum slice,
-    8000 candidates, 80 elites, initial std 1, 10 persisted elites, noise
-    interpolated from 40 knots."""
-    params = CemParams(
-        Q=np.diag([1., 1.]), Qd=np.diag([20., 20.]), R=np.diag([1.]),
-        x0=np.zeros(2), xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
-        u_trj_init=np.tile([0.1], (T, 1)), n_elite=n_elite,
-        batch_size=batch_size, initial_std=np.array([1.0]), elite_keep=10,
-        noise_knots=40)
-    return CrossEntropyMethod(make_pendulum(0.05), params, device=device)
-
-
-def bicycle_cem(device, hard=True, T=100, batch_size=100, n_elite=10):
-    """``examples/bicycle.py:42-59``: the bicycle to a goal ahead-left
-    (easy) or behind the car (hard), 100 candidates, 10 elites, initial
-    std (1, 1)."""
-    xd = (np.array([-3., -1., -np.pi / 2, 0., 0.]) if hard
-          else np.array([3., 1., np.pi / 2, 0., 0.]))
-    params = CemParams(
-        Q=np.diag([5., 5., 3., 0.1, 0.1]),
-        Qd=np.diag([50., 50., 30., 1., 1.]), R=np.diag([1., 0.1]),
-        x0=np.zeros(5), xd_trj=np.tile(xd, (T + 1, 1)),
-        u_trj_init=np.tile([0.1, 0.0], (T, 1)),
-        initial_std=np.array([1.0, 1.0]), batch_size=batch_size,
-        n_elite=n_elite)
-    return CrossEntropyMethod(make_bicycle(0.1), params, device=device)
 
 
 def circle_pair_model(geom, quasistatic):
@@ -1035,23 +552,6 @@ def admm_initial(prob, bounds, n_phys, idx_w):
     return z0, y0
 
 
-@contextlib.contextmanager
-def capture(module, name, calls):
-    """Record the arguments of every call of ``module.name`` in ``calls``
-    (the call goes through unchanged)."""
-    real = getattr(module, name)
-
-    def recording(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    setattr(module, name, recording)
-    try:
-        yield
-    finally:
-        setattr(module, name, real)
-
-
 def first_calls(solver, module, name, count, label):
     """The arguments of the ``count`` calls of ``module.name`` that the
     first iteration of ``solver`` makes on the card."""
@@ -1062,24 +562,6 @@ def first_calls(solver, module, name, count, label):
     check(len(calls) == count, f"{label}: {len(calls)} calls of {name} in "
                                f"the first iteration, expected {count}")
     return calls
-
-
-def first_iteration_inputs(solver_fn=planar_hand_solver, rollouts=1):
-    """The arguments the first iteration of a contact slice (by default the
-    planar hand's) hands K2 (its two calls), K3 and K4 (None for a slice
-    whose line search does not run K4: ``rollouts=0``), recorded from a
-    solver run on the card."""
-    k2, k3, k4 = [], [], []
-    solver, _ = solver_fn(DEVICE)
-    with capture(cuda_qp, "solve_qp_batched_cuda", k2), \
-            capture(cuda_admm, "solve_boxed_tvlqr_cuda", k3), \
-            capture(cuda_rollout, "linesearch_rollout_cuda", k4):
-        solver.iterate(1, verbose=False)
-    torch.cuda.synchronize()
-    check(len(k2) == 2 and len(k3) == 1 and len(k4) == rollouts,
-          f"first iteration: {len(k2)} QP, {len(k3)} ADMM and {len(k4)} "
-          f"rollout calls")
-    return k2, k3[0], k4[0] if rollouts else None
 
 
 def qp_gaps(qps, iters, init=None, init_plain=None):
@@ -1482,9 +964,7 @@ def drive_cem(label, solver, iterations, rollouts_per_it, card):
     return launches, dt * 1e3
 
 
-def csv_curve(name):
-    """The committed cost curve ``examples/analysis/<name>.csv``."""
-    return np.loadtxt(ANALYSIS / f"{name}.csv", ndmin=1)
+csv_curve = common.committed_curve
 
 
 def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
@@ -1496,21 +976,21 @@ def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
           f"{label}: best cost {best} is not in [{best_min}, {best_max}]")
 
 
-def profile_iteration(solver, iterations, card):
+def profile_iteration(solver, iterations, card, logdir):
     """Where an iteration's time goes: ``iterations`` iterations with each
-    phase ended by ``torch.cuda.synchronize()`` (host clock), then as many
-    under ``torch.profiler`` unsynchronised, for the device's busy share and
-    its kernels by name."""
-    times = collections.defaultdict(float)
+    phase timed by a ``PhaseTimer`` that starts after and ends with a
+    device synchronisation (host clock), then as many under
+    ``profile_trace`` unsynchronised, for the device's busy share and its
+    kernels by name; the trace goes to ``logdir`` and must name K4's
+    kernel."""
+    timer = PhaseTimer()
+    anchor = solver.x0                  # block_on: waits for the card
 
     def timed(key, fn):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            times[key] += time.perf_counter() - t0
-            return out
+            with timer.phase(key, block_on=anchor):
+                return fn(*args, **kwargs)
         return run
 
     from irs_mpc_torch.solvers import irs_mpc
@@ -1529,36 +1009,38 @@ def profile_iteration(solver, iterations, card):
     solver.system = dataclasses.replace(
         system, ls_rollout_fn=timed("line-search chain (K4)",
                                     system.ls_rollout_fn))
-    total = 0.0
+    whole = PhaseTimer()
     try:
         for _ in range(iterations):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solver.iterate(1, verbose=False)
-            torch.cuda.synchronize()
-            total += time.perf_counter() - t0
+            with whole.phase("iteration", block_on=anchor):
+                solver.iterate(1, verbose=False)
     finally:
         for (mod, name, _), fn in zip(patches, real):
             setattr(mod, name, fn)
         for name in ("_build_problem", "_box_bounds", "eval_cost"):
             delattr(solver, name)
         solver.system = system
-    for key, s in times.items():
+    for key, s in timer.totals.items():
         print(f"[profile] {key}: {s / iterations * 1e3:.3f} ms")
-    rest = total - sum(times.values())
+    total = whole.totals["iteration"]
+    rest = total - sum(timer.totals.values())
     print(f"[profile] remainder: {rest / iterations * 1e3:.3f} ms; "
           f"iteration, synchronised: {total / iterations * 1e3:.3f} ms "
           f"(mean of {iterations}; {card})")
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_trace(logdir) as prof:
         t0 = time.perf_counter()
         solver.iterate(iterations, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    trace = Path(logdir) / "trace.json"
+    check(trace.exists() and "rollout_kernel" in trace.read_text(),
+          f"profile: {trace} is missing or names no K4 kernel")
+    print(f"[profile] trace {trace}: {trace.stat().st_size} bytes, names "
+          f"K4's rollout_kernel")
     by_name = collections.defaultdict(float)
     count = 0
     for ev in prof.events():
@@ -1968,8 +1450,6 @@ def phase_sharding(card, paths):
     of the card's cells; the five modes' sharded estimates against the
     single-device ones at the pendulum and the planar hand, then the
     pendulum solver on the mesh against the single-device run."""
-    import tempfile
-
     import torch.distributed as dist
 
     from irs_mpc_torch.ops.estimators import estimate_tv_matrices
@@ -2043,6 +1523,97 @@ def phase_sharding(card, paths):
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
+
+
+# Phase 23: box pushing on the LCP contact model (examples/box_pushing.py:
+# 117-138), zero_order_AB at its 21 descents: 2 K2, 1 K1 and 1 K3 an
+# iteration and no K4 (``rollout.supports_model`` refuses the LCP model, as
+# the JAX package's gate does); the curve held by the runner's rule.
+LCP_CURVE, LCP_ITERATIONS = "box_pushing_lcp_zero_order_AB", 21
+LCP_PER_IT = {"cuda_qp": 2, "cuda_riccati": 1, "cuda_admm": 1,
+              "cuda_rollout": 0}
+# The pendulum slice checkpointed after 2 iterations and resumed for 3
+# equals 5 iterations straight, bit for bit (the same draws from the
+# restored generator state, the same kernels).
+CKPT_FIRST, CKPT_REST = 2, 3
+
+
+def phase_lcp(card, paths):
+    """Phase 23: K2 against the plain PDIP on the two calls of the first
+    iteration of box pushing on the LCP model in zero_order_AB (returns
+    their rows); that path's curve at its budget under the runner's rule,
+    with exact launches; a checkpoint resumed on the card; the LCP step's
+    boundary layer on the card."""
+    from irs_mpc_torch.examples import run_all
+    from irs_mpc_torch.utils import checkpoint, config
+
+    solver, model = box_pushing.build_lcp_solver("zero_order_AB",
+                                                 device=DEVICE)
+    check(model.contact_model == "lcp" and not rollout.supports_model(model)
+          and solver.system.ls_rollout_fn is None,
+          "box pushing LCP: K4 must refuse the LCP model")
+    rows = []
+    T, S = solver.T, solver.params.smoothing.num_samples
+    calls = first_calls(solver, cuda_qp, "solve_qp_batched_cuda", 2,
+                        "box_pushing lcp")
+    sizes = [(args[1].shape[0], args[4]) for args, _ in calls]
+    check(sizes == [(T, 30), (T * S, 15)],
+          f"K2: box_pushing lcp (QPs, iterations) {sizes}")
+    for args, _ in calls:
+        B, n = args[1].shape
+        C, d = args[2], args[3]
+        open_rows = int(((C.abs().amax(-1) == 0) & (d == 1)).sum())
+        print(f"[K2] box_pushing lcp {B} QPs: {open_rows} of {d.numel()} "
+              f"rows masked to 0 dq <= 1 (separated pairs)")
+        rows.append(k2_row(f"box_pushing lcp {B} QPs x {args[4]} it, n={n} "
+                           f"m={d.shape[1]}", args[:4], args[4], card))
+
+    solver, _ = box_pushing.build_lcp_solver("zero_order_AB", device=DEVICE)
+    paths[LCP_CURVE], _ = drive_slice(LCP_CURVE, solver, LCP_ITERATIONS,
+                                      LCP_PER_IT, card, T * S)
+    drifts, best = run_all.check_curve(
+        solver.cost_lst, csv_curve(LCP_CURVE),
+        run_all.RULES.get(LCP_CURVE, run_all.DEFAULT), DEVICE)
+    print(f"[{LCP_CURVE}] best {best:.4f} against the committed curve's "
+          f"{csv_curve(LCP_CURVE).min():.4f} (+-12 %); "
+          + ("; ".join(drifts) or "ok"))
+    check(not drifts, f"{LCP_CURVE}: " + "; ".join(drifts))
+
+    def pendulum_solver():
+        return IrsMpc(make_pendulum(0.05), pendulum_params("zero_order"),
+                      device=DEVICE)
+
+    straight = pendulum_solver()
+    straight.iterate(CKPT_FIRST + CKPT_REST, verbose=False)
+    first = pendulum_solver()
+    first.iterate(CKPT_FIRST, verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_checkpoint(Path(tmp) / "pendulum.npz", first)
+        resumed = pendulum_solver()
+        checkpoint.load_checkpoint(path, resumed)
+    check(resumed.iter == first.iter and resumed.u_trj.is_cuda
+          and resumed.generator.device.type == "cuda",
+          "checkpoint: the resumed solver is not the saved one on the card")
+    resumed.iterate(CKPT_REST, verbose=False)
+    torch.cuda.synchronize()
+    gap = (resumed.u_trj - straight.u_trj).abs().max().item()
+    print(f"[checkpoint] pendulum {CKPT_FIRST} + {CKPT_REST} iterations "
+          f"against {CKPT_FIRST + CKPT_REST} straight: u_trj max |diff| "
+          f"{gap:.3e}, cost {resumed.cost:.6f} / {straight.cost:.6f}")
+    check(torch.equal(resumed.u_trj, straight.u_trj)
+          and resumed.cost_lst == straight.cost_lst,
+          f"checkpoint: the resumed run is not the straight one ({gap})")
+
+    x = torch.tensor([0., 0.5, 0., 0., -0.13], device=DEVICE)[None]
+    u = torch.tensor([0., -0.03], device=DEVICE)[None]
+    ani = config.make_system("box_pushing", 0.1).step(x, u)[0, 1].item()
+    lcp = config.make_system("box_pushing", 0.1,
+                             contact_model="lcp").step(x, u)[0, 1].item()
+    print(f"[make_system] box y after a gap-closing step: anitescu {ani:.6f}"
+          f", lcp {lcp:.6f} (open gap: no reaction)")
+    check(ani > 0.5 + 1e-3 and abs(lcp - 0.5) < 1e-4,
+          f"make_system lcp boundary layer: anitescu {ani}, lcp {lcp}")
+    return rows
 
 
 def main():
@@ -2249,7 +1820,7 @@ def main():
     solver, _ = box_pushing_solver(DEVICE)
     solver.iterate(1, verbose=False)
     torch.cuda.reset_peak_memory_stats()
-    profile_iteration(solver, 3, card)
+    profile_iteration(solver, 3, card, _nvcc.BUILD_DIR / "trace")
     lap(12)
 
     # -- Phase 13: carrots: K3 and K1 at its shape, then its path -----------
@@ -2291,6 +1862,8 @@ def main():
     lap(21)
     phase_sharding(card, paths)
     lap(22)
+    rows += phase_lcp(card, paths)
+    lap(23)
 
     entries = []
     for kernel, name, source, replaces in (

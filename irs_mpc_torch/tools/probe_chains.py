@@ -4,7 +4,7 @@
 
 from the repository root, on a machine with an NVIDIA GPU and the CUDA
 toolkit.  For the first iteration of the box-pushing, planar-hand and
-box-pivoting slices (``chip_smoke``'s solvers) it prints
+box-pivoting slices (the solvers of ``irs_mpc_torch/examples/``) it prints
 
 - each kernel's device time (``torch.profiler``, mean of 10 launches)
   against its iteration count: K4 at 0, 1, 5 and 10 warm PDIP iterations a
@@ -28,18 +28,17 @@ is missing.
 """
 import ctypes
 import dataclasses
-import os
 import subprocess
-import sys
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.getcwd())
-import chip_smoke as cs  # noqa: E402
-from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout  # noqa: E402
-from irs_mpc_torch.ops import _nvcc, cuda_admm, cuda_riccati, lqr  # noqa: E402
+from ..examples import box_pivoting, box_pushing, planar_hand
+from ..models.contact import cuda_qp, cuda_rollout
+from ..ops import _nvcc, cuda_admm, cuda_riccati, lqr
+from ..utils.timing import card_line
+from .kernel_inputs import bench_problem, first_iteration_inputs
 
 GETTER = '''
 extern "C" void prof_read(unsigned long long* h) {
@@ -229,14 +228,14 @@ def phase_cycles(so, names, fn):
 
 
 def main():
-    card = cs.card_line()
+    card = card_line()
     print(card)
     _nvcc.build_all([cuda_admm.LIB, cuda_rollout.LIB, cuda_qp.LIB,
                      cuda_riccati.LIB])
-    inputs = {name: cs.first_iteration_inputs(fn) for name, fn in (
-        ("box_pushing", cs.box_pushing_solver),
-        ("planar_hand", cs.planar_hand_solver),
-        ("box_pivoting", cs.box_pivoting_solver))}
+    inputs = {name: first_iteration_inputs(mod.build_solver)
+              for name, mod in (("box_pushing", box_pushing),
+                                ("planar_hand", planar_hand),
+                                ("box_pivoting", box_pivoting))}
     for name, (k2, (k3a, k3k), (k4a, _)) in inputs.items():
         for args, _ in k2:
             B = args[1].shape[0]
@@ -267,7 +266,7 @@ def main():
     problems = {name: lqr.LqrProblem(*(a.contiguous() for a in k3a[0]))
                 for name, (_, (k3a, _), _) in inputs.items()}
     problems["bench"] = lqr.LqrProblem(*(a.contiguous()
-                                         for a in cs.bench_problem()))
+                                         for a in bench_problem()))
     built = cuda_riccati.LIB.load()
     variants = riccati_variants([(8, 32), (8, 64), (8, 128), (16, 32),
                                  (16, 128), (16, 256)])

@@ -3,8 +3,8 @@ cost on the true dynamics.
 
     python3 -m irs_mpc_torch.tools.probe_mlp_seeds [--seeds 8] [--device cuda]
 
-from the repository root.  For each seed it runs ``chip_smoke``'s
-``learned_pendulum`` (``examples/pendulum_nn.py``'s configuration: an MLP
+from the repository root.  For each seed it runs ``learned_pendulum`` of
+``irs_mpc_torch/examples/pendulum_nn.py`` (the JAX example's: an MLP
 (64, 64) on 20k transitions for 600 Adam steps, then the exact and
 zero-order swing-ups through it, T=100, 500 samples, 10 iterations) and
 prints the last training loss, each mode's best cost on the learned model
@@ -15,15 +15,13 @@ tests/test_torch_mlp.py --jax-seeds 8`` prints the JAX package's on the
 CPU.
 """
 import argparse
-import os
 import statistics
-import sys
 import time
 
 import torch
 
-sys.path.insert(0, os.getcwd())
-import chip_smoke as cs  # noqa: E402
+from ..examples.pendulum_nn import learned_pendulum
+from ..utils.timing import card_line
 
 COLUMNS = ("loss", "exact best", "exact true", "zero_order best",
            "zero_order true")
@@ -31,7 +29,7 @@ COLUMNS = ("loss", "exact best", "exact true", "zero_order best",
 
 def seed_row(seed, device):
     """(loss, exact best, exact true, zero_order best, zero_order true)."""
-    loss, out = cs.learned_pendulum(device, seed=seed)
+    loss, out = learned_pendulum(device, seed=seed)
     row = [loss]
     for mode in ("exact", "zero_order"):
         solver, true_cost = out[mode]
@@ -44,7 +42,7 @@ def main():
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    where = (cs.card_line() if args.device.startswith("cuda")
+    where = (card_line() if args.device.startswith("cuda")
              else "the CPU")
     print(f"torch {torch.__version__}; {where}")
     rows = []

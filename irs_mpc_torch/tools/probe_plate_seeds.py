@@ -3,8 +3,8 @@
     python3 -m irs_mpc_torch.tools.probe_plate_seeds [--seeds 32]
 
 from the repository root, on a machine with an NVIDIA GPU and the CUDA
-toolkit.  For each seed it runs ``chip_smoke``'s plate-pickup solver
-(``examples/plate_pickup.py``'s configuration) for 8 iterations on the card
+toolkit.  For each seed it runs the plate-pickup solver of
+``irs_mpc_torch/examples/plate_pickup.py`` for 8 iterations on the card
 twice from the same stream: once as built, the estimation's contact QPs on
 K2, and once with every K2 call replaced by the plain PDIP on the same
 tensors.  It prints each seed's best for both, then for each route the
@@ -14,16 +14,24 @@ the lower.  Everything but the QP solver is the same in both runs, so the
 two distributions differ only by K2's rounding against the plain PDIP's.
 """
 import argparse
-import os
 import statistics
-import sys
 import time
 
 import torch
 
-sys.path.insert(0, os.getcwd())
-import chip_smoke as cs  # noqa: E402
-from irs_mpc_torch.models.contact import cuda_qp  # noqa: E402
+from ..examples import plate_pickup
+from ..models.contact import cuda_qp, cuda_rollout
+from ..ops import _nvcc, cuda_admm, cuda_riccati
+from ..utils.timing import card_line
+
+ITERATIONS, INITIAL, BEST, RTOL = (
+    plate_pickup.GOLDEN_ITERATIONS, plate_pickup.GOLDEN_INITIAL,
+    plate_pickup.GOLDEN_BEST, plate_pickup.GOLDEN_RTOL)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
 
 
 def plain_on_card(P, q, C, d, iters=30, sigma=0.25, init=None,
@@ -39,19 +47,18 @@ def best(seed, route):
     if route == "plain":
         cuda_qp.solve_qp_batched_cuda = plain_on_card
     try:
-        solver, _ = cs.plate_pickup_solver(cs.DEVICE, seed=seed)
+        solver, _ = plate_pickup.build_solver(seed=seed, device="cuda")
         cuda_qp.LAUNCHES = 0
-        solver.iterate(cs.PLATE_ITERATIONS, verbose=False)
+        solver.iterate(ITERATIONS, verbose=False)
         torch.cuda.synchronize()
     finally:
         cuda_qp.solve_qp_batched_cuda = real
     launches = cuda_qp.LAUNCHES
-    want = 2 * cs.PLATE_ITERATIONS if route == "K2" else 0
-    cs.check(launches == want, f"seed {seed} {route}: {launches} K2 "
-                               f"launches, expected {want}")
-    cs.check(abs(solver.cost_lst[0] - cs.PLATE_INITIAL)
-             <= 1e-3 * cs.PLATE_INITIAL,
-             f"seed {seed} {route}: initial cost {solver.cost_lst[0]}")
+    want = 2 * ITERATIONS if route == "K2" else 0
+    check(launches == want, f"seed {seed} {route}: {launches} K2 "
+                            f"launches, expected {want}")
+    check(abs(solver.cost_lst[0] - INITIAL) <= 1e-3 * INITIAL,
+          f"seed {seed} {route}: initial cost {solver.cost_lst[0]}")
     return solver.cost_best
 
 
@@ -59,10 +66,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=32)
     args = ap.parse_args()
-    cs.check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    card = cs.card_line()
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    card = card_line()
     print(f"torch {torch.__version__}; {card}")
-    cs._nvcc.build_all([mod.LIB for mod in cs.KERNELS])
+    _nvcc.build_all([mod.LIB for mod in (cuda_riccati, cuda_qp, cuda_admm,
+                                         cuda_rollout)])
     bests = {"K2": [], "plain": []}
     t0 = time.perf_counter()
     for seed in range(args.seeds):
@@ -71,12 +79,11 @@ def main():
         print(f"seed {seed}: K2 {bests['K2'][-1]:.4f} plain "
               f"{bests['plain'][-1]:.4f} ({time.perf_counter() - t0:.0f} s)",
               flush=True)
-    lo, hi = (1 - cs.BOX_BEST_RTOL) * cs.PLATE_BEST, \
-        (1 + cs.BOX_BEST_RTOL) * cs.PLATE_BEST
+    lo, hi = (1 - RTOL) * BEST, (1 + RTOL) * BEST
     for route, b in bests.items():
         inside = sum(lo <= x <= hi for x in b)
         print(f"{route}: median {statistics.median(b):.4f}; within 12 % of "
-              f"{cs.PLATE_BEST}: {inside} of {len(b)}; seeds 0-15 median "
+              f"{BEST}: {inside} of {len(b)}; seeds 0-15 median "
               f"{statistics.median(b[:16]):.4f}; sorted "
               + " ".join(f"{x:.3f}" for x in sorted(b)))
     lower = sum(k < p for k, p in zip(bests["K2"], bests["plain"]))
