@@ -116,7 +116,19 @@ exit code:
    1 K1, 1 K3 and no K4 an iteration; the pendulum slice checkpointed
    after 2 iterations and resumed for 3, equal bit for bit to 5 straight;
    ``utils.config.make_system("box_pushing", 0.1, contact_model="lcp")``
-   on the card: no reaction at an open gap.
+   on the card: no reaction at an open gap;
+24. the closing slice: K2, K3, K1 and K4 against their plain versions on
+   the first iteration of the long-arm model (a six-link arm and a
+   two-link arm around a ball, ``long_arm_model``: K4's link table) and
+   K4 on built inputs with its pairs' sides swapped, then its solver (T=20,
+   50 samples, 4 iterations: 2 K2 and 1 each of K1, K3 and K4 an
+   iteration, initial cost 32.5087 within 0.1 %, best below it); the
+   bundle study's deterministic parts (``examples/bundle_study.py``: the
+   exact slope, the 101-point sweep, both contact models' 81-point true
+   curves) within 1e-5 of the JAX study's on the CPU; the estimator
+   comparison (``examples/planar_hand_second_order_estimators.py``), each
+   mode's B within 0.02 of the exact one relative to its largest entry;
+   the multi-rank dry run (``examples/dryrun.py``) on one NCCL rank.
 
 The example configurations are built by ``irs_mpc_torch/examples/``; this
 script keeps its names for them (``planar_hand_solver`` and so on, the
@@ -298,6 +310,12 @@ MLP_JAX_MEDIANS = {"loss": 2.09999e-4, "exact": 804.794,
 # on a 2 x 2 mesh within 5 % of the single-device run
 # (``tests/test_parallel.py:67-85``).
 SHARD_REL_TOL, SHARD_COST_RTOL, SHARD_ITERATIONS = 1e-4, 0.05, 8
+# The long-arm model (phase 24): K4 on a six-link arm, then its solver at
+# T=20, 50 samples a knot, 4 iterations, 2 K2 and 1 each of K1, K3 and K4
+# an iteration; its float32 initial cost on the CPU
+# (tests/test_torch_arm_links.py).
+LONG_ARM_T, LONG_ARM_S, LONG_ARM_ITERATIONS = 20, 50, 4
+LONG_ARM_INITIAL = 32.5087
 # One H100 SXM at its full 700 W (NVIDIA's data sheet): float32 outside the
 # tensor cores, and the HBM3's rate.
 F32_PEAK, HBM_RATE = 67e12, 3.35e12
@@ -440,6 +458,69 @@ def circle_pair_model(geom, quasistatic):
         gravity=(0.0, -10.0))
 
 
+def long_arm_model(geom, quasistatic, links=6):
+    """A model for arms of more than two links, which no bundled model has:
+    a ball (y, z, th) on the ground, a ``links``-link arm from the left
+    (links of 0.13, pointing up at zero angles) that reaches over it, and
+    the planar hand's two-link arm shape from the right, every link against
+    the ball.  ``geom`` and ``quasistatic`` are either package's modules, so
+    that the tests build its JAX twin from the same code; at
+    ``CONTACT_Q0["long_arm"]`` the last two links of the long arm touch the
+    ball."""
+    qs = quasistatic
+    ball = geom.FreeBody2D(idx_pos=(0, 1), idx_rot=2,
+                           shapes=(geom.Circle((0., 0.), 0.25),))
+    left = geom.Arm2D(base=(-0.5, 0.0), link_lengths=(0.13,) * links,
+                      joint_idx=tuple(range(3, 3 + links)), radius=0.04,
+                      angle_offset=np.pi)
+    right = geom.Arm2D(base=(0.6, 0.0), link_lengths=(0.2, 0.2),
+                       joint_idx=(3 + links, 4 + links), radius=0.04,
+                       angle_offset=np.pi)
+    ground = geom.StaticBody(shapes=(geom.HalfSpace((0.0, 1.0), 0.0),))
+    pairs = [qs.ContactPair(body_a=arm, body_b=0, shape_a=k, mu=0.8)
+             for arm, n in ((1, links), (2, 2)) for k in range(n)]
+    pairs.append(qs.ContactPair(body_a=3, body_b=0, mu=0.8))
+    return qs.QuasistaticModel(
+        name="long_arm", h=0.1, nq=5 + links,
+        models=(qs.ModelInstance("ball", (0, 1, 2), actuated=False,
+                                 mass=(1.0, 1.0, 0.05)),
+                qs.ModelInstance("arm_left", tuple(range(3, 3 + links)),
+                                 actuated=True, stiffness=(50.0,) * links),
+                qs.ModelInstance("arm_right", (3 + links, 4 + links),
+                                 actuated=True, stiffness=(50.0, 25.0))),
+        bodies=(ball, left, right, ground), pairs=tuple(pairs),
+        gravity=(0.0, -10.0))
+
+
+def long_arm_solver(device, T=LONG_ARM_T, num_samples=LONG_ARM_S):
+    """The long-arm model (``long_arm_model``, six links) in the planar
+    hand's configuration: roll the ball 0.1 to the right, Δu cost,
+    trust-region input boxes of +-0.5h, std_u 0.3 decayed by 1/it**0.8,
+    zero_order_B with decoupled A/B, boxed ADMM at 12 sweeps and the
+    estimation surrogate; so an iteration is 2 K2, 1 K1, 1 K3 and 1 K4 on
+    the card."""
+    model = long_arm_model(geometry, quasistatic)
+    idx_u = model.indices_u_into_x()
+    x0 = np.asarray(CONTACT_Q0["long_arm"])
+    xd = x0.copy()
+    xd[:3] += (0.1, 0.0, -0.4)
+    Q = np.diag([10.0, 10.0, 1.0] + [1e-3] * model.dim_u)
+    params = IrsMpcParams(
+        Q=Q, Qd=100 * Q, R=np.eye(model.dim_u), x0=x0,
+        xd_trj=np.tile(xd, (T + 1, 1)), u_trj_init=np.tile(x0[idx_u], (T, 1)),
+        u_bounds_abs=np.array([-np.ones(model.dim_u) * 0.5 * model.h,
+                               np.ones(model.dim_u) * 0.5 * model.h]),
+        bounds_trust_region=True, indices_u_into_x=idx_u,
+        unactuated_indices=np.array([0, 1, 2]),
+        gradient_mode="zero_order_B", decouple_AB=True,
+        smoothing=SmoothingConfig(
+            num_samples=num_samples, std_u=0.3, std_x=1e-3,
+            decay=lambda it: 1.0 / it ** 0.8, decay_std_x=False),
+        admm_iters=12, admm_over_relax=1.6, report_final_cost_with_Q=False,
+        estimation_system=model.estimation_surrogate())
+    return IrsMpc(model.system(), params, device=device), model
+
+
 def swap_pairs(model):
     """``model`` with the two sides of every contact pair swapped: the
     other order of each pair kind, and normals of the other sign."""
@@ -458,6 +539,8 @@ CONTACT_Q0 = {
     "box_pivoting": [0.45, 0.5, 0.0, -0.15, 0.5],
     "plate_pickup": [0.0, 0.04, 0.0, 0.0, 0.30, 0.0, -0.16, -0.16],
     "circle_pair": [0.0, 0.2, 0.0, -0.31, 0.2],
+    "long_arm": [0.0, 0.25, 0.0, -0.1, -0.25, -0.25, -0.25, -0.25, -0.25,
+                 0.4, 0.6],
 }
 
 
@@ -1616,6 +1699,75 @@ def phase_lcp(card, paths):
     return rows
 
 
+def phase_closing(card, paths):
+    """Phase 24: K4 (and K2, K3, K1) on the long-arm model, a six-link arm
+    in its link table, held against their plain versions on its first
+    iteration and on built inputs with the pairs' sides swapped, then its
+    solver with exact launches; the bundle study's deterministic parts
+    against the JAX study's (``examples/bundle_study_jax.json``); the
+    estimator comparison; the multi-rank dry run on one NCCL rank.
+    Returns the kernels' rows."""
+    import torch.distributed as dist
+
+    from irs_mpc_torch.examples import (bundle_study, dryrun, run_all,
+                                        planar_hand_second_order_estimators
+                                        as estimators)
+    from irs_mpc_torch.parallel import multihost
+
+    rows, _ = slice_kernel_rows("long_arm", long_arm_solver, LONG_ARM_T,
+                                LONG_ARM_S, card)
+    model = swap_pairs(long_arm_model(geometry, quasistatic))
+    args = (model,) + tuple(chain_inputs(model, CONTACT_Q0["long_arm"],
+                                         aug=True, rel=True,
+                                         device=DEVICE).values())
+    rows.append(k4_row(f"long_arm (sides swapped) 3 lanes x T=10, "
+                       f"nq={model.nq}, {model.n_constraint_rows()} rows, "
+                       f"built inputs", args, card))
+    solver, model = long_arm_solver(DEVICE)
+    check(rollout.supports_model(model) and rollout.chain_gate(model)
+          and len(model.bodies[1].link_lengths) == 6,
+          "long arm: K4 must take the six-link arm")
+    paths["long_arm"], _ = drive_slice(
+        "long_arm", solver, LONG_ARM_ITERATIONS,
+        {"cuda_riccati": 1, "cuda_qp": 2, "cuda_admm": 1, "cuda_rollout": 1},
+        card, LONG_ARM_T * LONG_ARM_S)
+    check_golden("long_arm", solver.cost_lst[0], solver.cost_best,
+                 LONG_ARM_INITIAL, np.nextafter(solver.cost_lst[0], 0))
+
+    ref = json.loads(run_all.BUNDLE_JAX.read_text())
+    det = bundle_study.deterministic(DEVICE)
+    for key, want in (("exact_slope", [ref["exact_slope"]]),
+                      ("sweep", ref["sweep"]),
+                      ("true_Anitescu", ref["true_Anitescu"]),
+                      ("true_LCP", ref["true_LCP"])):
+        err = float(np.abs(np.atleast_1d(det[key]) - np.asarray(want)).max())
+        print(f"[bundle study] {key}: max abs err {err:.3e} against the JAX "
+              f"study on the CPU ({run_all.BUNDLE_JAX.name})")
+        check(err <= run_all.BUNDLE_ATOL,
+              f"bundle study {key}: {err:.3e} > {run_all.BUNDLE_ATOL}")
+
+    mbp = planar_hand_second_order.make_mbp("position")
+    x0, u0 = estimators.probe_state(mbp)
+    _, est_rows = estimators.compare(mbp.system(), x0, u0,
+                                     generator=torch.Generator(
+                                         DEVICE).manual_seed(0))
+    for mode, err_a, err_b, rel_a, rel_b in est_rows:
+        print(f"[estimators] {mode}: rel_err_A {rel_a:.6f}, rel_err_B "
+              f"{rel_b:.6f}")
+        check(rel_b <= 0.02, f"estimators {mode}: rel_err_B {rel_b} > 0.02")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/rendezvous", world_size=1,
+                             rank=0)
+        try:
+            check(dist.get_backend() == "nccl", "dry run: not NCCL")
+            dryrun.dryrun(DEVICE)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    return rows
+
+
 def main():
     lap = Lap()
     # -- Phase 0: environment ------------------------------------------------
@@ -1864,6 +2016,8 @@ def main():
     lap(22)
     rows += phase_lcp(card, paths)
     lap(23)
+    rows += phase_closing(card, paths)
+    lap(24)
 
     entries = []
     for kernel, name, source, replaces in (
@@ -1894,6 +2048,18 @@ def main():
             shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}
                     for r in mine]))
+    # K4 on the six-link arm (phase 24), a row of its own.
+    arm = next(r for r in rows if r["kernel"] == "K4"
+               and r["shape"].startswith("long_arm "))
+    entries.append(dict(
+        name="rollout_chain (six-link arm)", route="cuda",
+        source="irs_mpc_torch/csrc/rollout.cu",
+        replaces="irs_mpc_tpu/models/contact/pallas_rollout.py:613",
+        launches=paths["long_arm"]["cuda_rollout"],
+        launches_by_path={"long_arm": paths["long_arm"]["cuda_rollout"]},
+        max_abs_err=arm["max_abs_err"], ms=arm["ms"],
+        plain_ms=arm["plain_ms"], bound_ms=arm["bound_ms"],
+        bound_by=arm["bound_by"], library_ms=None, shape=arm["shape"]))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

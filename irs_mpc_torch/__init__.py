@@ -37,6 +37,8 @@ from .parallel.sharded import (Mesh, default_mesh, make_mesh,  # noqa: E402
 from .solvers.cem import CemParams, CrossEntropyMethod  # noqa: E402
 from .solvers.irs_mpc import IrsMpc, IrsMpcParams, IterationStats  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = [
     "System", "make_pendulum", "make_bicycle", "make_quadrotor",
     "make_three_cart", "make_planar_hand", "make_box_pushing",
@@ -48,3 +50,10 @@ __all__ = [
     "IrsMpc", "IrsMpcParams", "IterationStats", "CemParams",
     "CrossEntropyMethod",
 ]
+
+
+def contact_systems():
+    """The contact-system factory module (``make_planar_hand`` and the
+    others), as the JAX package's ``contact_systems()`` returns its own."""
+    from .models.contact import systems
+    return systems

@@ -114,13 +114,15 @@ _ANALYTIC = {"pendulum": make_pendulum, "bicycle": make_bicycle,
 
 
 def system_from_jax(s):
-    """The port's counterpart of a JAX system: a second-order contact
-    model (``Mbp2DModel``: its base through ``model_from_jax``, and its own
-    fields), or an analytic system by its name, with the constructor
-    arguments of the JAX factory: its ``h``, and the cart width ``d`` of
-    the three-cart model, read from the closure of its step.  Raises on a
-    name the port has no factory for (quasistatic contact models cross
-    through ``model_from_jax``)."""
+    """The port's counterpart of a JAX system: a quasistatic contact model
+    (``model_from_jax``), a second-order contact model (``Mbp2DModel``: its
+    base through ``model_from_jax``, and its own fields), or an analytic
+    system by its name, with the constructor arguments of the JAX factory:
+    its ``h``, and the cart width ``d`` of the three-cart model, read from
+    the closure of its step.  Raises on a name the port has no factory
+    for."""
+    if type(s).__name__ == "QuasistaticModel":
+        return model_from_jax(s)
     if type(s).__name__ == "Mbp2DModel":
         return Mbp2DModel(
             base=model_from_jax(s.base), actuated_mass=_plain(
@@ -128,8 +130,7 @@ def system_from_jax(s):
             control_mode=str(s.control_mode), kd_ratio=float(s.kd_ratio))
     if s.name not in _ANALYTIC:
         raise ValueError(f"system_from_jax: no analytic factory "
-                         f"{s.name!r}; contact models cross through "
-                         f"model_from_jax")
+                         f"{s.name!r}")
     step = s.step
     free = dict(zip(step.__code__.co_freevars,
                     (c.cell_contents for c in step.__closure__ or ())))

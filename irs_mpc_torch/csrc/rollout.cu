@@ -21,11 +21,15 @@
 // for every contact pair its first row and contact count, then one record
 // per side naming its shape kind (circle, capsule, halfspace, box), its
 // body kind (static, free body, Arm2D, prismatic finger) and that body's
-// indices and parameters.  The narrow phase implements the JAX kernel's
-// eleven pair kinds (rollout._PAIR_KINDS): capsule-circle,
-// halfspace-circle, box-circle, capsule-box and halfspace-box, each either
-// way round, and circle-circle, in geometry.shape_contact's contact order,
-// normal signs and tie rules.  A capsule against a box gives two contacts
+// indices and parameters.  An arm's links (joint index and length) sit in
+// a link table of their own, each arm once, and a side names its arm's
+// first record: the TPU kernel unrolls any number of links at trace time,
+// and this one walks them, so an arm of any length fits (up to 64 link
+// records in all) without sizing any per-thread array by the longest arm.
+// The narrow phase implements the JAX kernel's eleven pair kinds
+// (rollout._PAIR_KINDS): capsule-circle, halfspace-circle, box-circle,
+// capsule-box and halfspace-box, each either way round, and circle-circle,
+// in geometry.shape_contact's contact order, normal signs and tie rules.  A capsule against a box gives two contacts
 // (its ends), a box against a halfspace four (its corners, in the order
 // (+,+), (-,+), (-,-), (+,-)); every contact has two rows, at its pair's
 // first row + 2c.
@@ -58,7 +62,8 @@
 // floors, 0.995, the last-finite rescue of dq, non-finite lam -> 0 and the
 // per-contact canonicalisation are those of the plain version.
 //
-// Limits: nq <= 16, m <= 16, nz <= 32, at most 64 rows (32 contacts).
+// Limits: nq <= 16, m <= 16, nz <= 32, at most 64 rows (32 contacts),
+// at most 64 arm links in the link table.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -75,13 +80,14 @@ constexpr int kMaxRows = 64;
 constexpr int kMaxPairs = kMaxRows / 2;
 constexpr int kLdc = kMaxNq + 1;
 constexpr int kChunkFloats = 8192;   // 32 KB of staged knots
-constexpr int kMaxLinks = 4;
+constexpr int kMaxLinkRecords = 64;
 constexpr int kMaxContacts = 4;   // per pair: a box's four corners
 // Table layout, as rollout.py: per side SIDE_INTS ints and SIDE_FLOATS
 // floats; per pair the first row and the contact count, then 2 sides; mu
-// first among the floats.
-constexpr int kSideInts = 5 + kMaxLinks;
-constexpr int kSideFloats = 7 + kMaxLinks;
+// first among the floats.  An arm side: i0 (si[2]) its link k, i3 (si[5])
+// its first record in the link table.
+constexpr int kSideInts = 6;
+constexpr int kSideFloats = 7;
 constexpr int kPairInts = 2 + 2 * kSideInts;
 constexpr int kPairFloats = 1 + 2 * kSideFloats;
 enum { kCircle = 0, kCapsule = 1, kHalfspace = 2, kBox = 3 };
@@ -110,11 +116,16 @@ struct Side {
   float ny, nz, off;        // halfspace
   float hx, hy, ct, st;     // box half extents; body (base) rotation
   float oy, oz, ay, az;     // finger base and world slide axis
-  float jy[kMaxLinks + 1], jz[kMaxLinks + 1];  // arm joints 0..k
 };
 
-__device__ void side_geometry(const int* si, const float* sf, const float* x,
-                              Side& g) {
+// The link table: joint index and length of every arm link.
+struct Links {
+  const int* joint;
+  const float* length;
+};
+
+__device__ void side_geometry(const int* si, const float* sf, Links lk,
+                              const float* x, Side& g) {
   g.shape = si[0];
   g.body = si[1];
   g.r = sf[0];
@@ -151,52 +162,69 @@ __device__ void side_geometry(const int* si, const float* sf, const float* x,
       g.a1y = g.cy + g.st * sf[3];
       g.a1z = g.cz - g.ct * sf[3];
     }
-  } else {  // Arm2D link k
-    const int k = si[2];
-    g.jy[0] = sf[4];
-    g.jz[0] = sf[5];
-    float acc = 0.f;
+  } else {  // Arm2D link k: walk joints 0..k+1 from the base
+    const int k = si[2], l0 = si[5];
+    float jy = sf[4], jz = sf[5], acc = 0.f;
     for (int j = 0; j <= k; ++j) {
-      const float a = x[si[5 + j]];
+      const float a = x[lk.joint[l0 + j]];
       acc = (j == 0) ? a : acc + a;
       const float ang = acc + sf[6];
-      const float L = sf[7 + j];
-      g.jy[j + 1] = g.jy[j] + sinf(ang) * L;
-      g.jz[j + 1] = g.jz[j] + (-cosf(ang)) * L;
+      const float L = lk.length[l0 + j];
+      if (j == k) {
+        g.a0y = jy;
+        g.a0z = jz;
+      }
+      jy = jy + sinf(ang) * L;
+      jz = jz + (-cosf(ang)) * L;
     }
-    g.a0y = g.jy[k];
-    g.a0z = g.jz[k];
-    g.a1y = g.jy[k + 1];
-    g.a1z = g.jz[k + 1];
+    g.a1y = jy;
+    g.a1z = jz;
   }
 }
 
-// Column i of the point Jacobian (Jy, Jz) of p on one side.
-__device__ void side_jacobian(const int* si, const Side& g, float py,
-                              float pz, int i, float& Jy, float& Jz) {
-  Jy = 0.f;
-  Jz = 0.f;
+// (ry, rz)[i] += (vy, vz) at the run-time column i, by a select at every
+// compile-time column, so that the row terms stay in registers.
+template <int NQ>
+__device__ __forceinline__ void add_col(float (&ry)[NQ], float (&rz)[NQ],
+                                        int i, float vy, float vz) {
+#pragma unroll
+  for (int c = 0; c < NQ; ++c) {
+    if (c == i) {
+      ry[c] += vy;
+      rz[c] += vz;
+    }
+  }
+}
+
+// Adds sign x the point Jacobian (Jy, Jz) of p on one side to (ry, rz):
+// the translation of a body (base), its rotation about its origin, a
+// finger's slide along the turned axis, and for an arm link k the
+// rotation about each joint 0..k, whose positions it walks again from the
+// base.
+template <int NQ>
+__device__ void side_jacobian(const int* si, const float* sf, Links lk,
+                              const float* x, const Side& g, float py,
+                              float pz, float sign, float (&ry)[NQ],
+                              float (&rz)[NQ]) {
   if (g.body == kFree || g.body == kFinger) {
-    // Translation of the body (base); rotation about its origin; a
-    // finger's slide along the turned axis.
     const float oy = g.body == kFree ? g.cy : g.oy;
     const float oz = g.body == kFree ? g.cz : g.oz;
-    if (i == si[2]) Jy += 1.f;
-    if (i == si[3]) Jz += 1.f;
-    if (i == si[4]) {
-      Jy += -(pz - oz);
-      Jz += (py - oy);
-    }
-    if (g.body == kFinger && i == si[5]) {
-      Jy += g.ay;
-      Jz += g.az;
-    }
+    add_col(ry, rz, si[2], sign, 0.f);
+    add_col(ry, rz, si[3], 0.f, sign);
+    if (si[4] >= 0) add_col(ry, rz, si[4], sign * -(pz - oz), sign * (py - oy));
+    if (g.body == kFinger) add_col(ry, rz, si[5], sign * g.ay, sign * g.az);
   } else if (g.body == kArm) {
-    for (int j = 0; j <= si[2]; ++j) {
-      if (i == si[5 + j]) {
-        Jy += -(pz - g.jz[j]);
-        Jz += (py - g.jy[j]);
-      }
+    const int k = si[2], l0 = si[5];
+    float jy = sf[4], jz = sf[5], acc = 0.f;
+    for (int j = 0; j <= k; ++j) {
+      const int i = lk.joint[l0 + j];
+      add_col(ry, rz, i, sign * -(pz - jz), sign * (py - jy));
+      if (j == k) break;
+      acc = (j == 0) ? x[i] : acc + x[i];
+      const float ang = acc + sf[6];
+      const float L = lk.length[l0 + j];
+      jy = jy + sinf(ang) * L;
+      jz = jz + (-cosf(ang)) * L;
     }
   }
 }
@@ -384,9 +412,11 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
                const float* __restrict__ tau,   // (nq,)
                const int* __restrict__ pair_i,  // (pairs, kPairInts)
                const float* __restrict__ pair_f,// (pairs, kPairFloats)
+               const int* __restrict__ link_i,  // (links,)
+               const float* __restrict__ link_f,// (links,)
                float* __restrict__ xs,          // (A, T+1, nq)
                float* __restrict__ us,          // (A, T, m)
-               int T, int tc, int m, int nz, int pairs, int mr,
+               int T, int tc, int m, int nz, int pairs, int links, int mr,
                int iters, int canon) {
   __shared__ float x[kMaxNq], b[kMaxNq], u[kMaxM], up[kMaxM];
   __shared__ float sp[kMaxNq], spq[kMaxNq], stau[kMaxNq];
@@ -395,6 +425,8 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
   __shared__ float w[kMaxRows], tk[kMaxRows], lm[kMaxRows];
   __shared__ int pi[kMaxPairs * kPairInts];
   __shared__ float pf[kMaxPairs * kPairFloats];
+  __shared__ int li[kMaxLinkRecords];
+  __shared__ float lf[kMaxLinkRecords];
   extern __shared__ float4 chunk4[];
 
   const int ln = blockIdx.x;
@@ -413,6 +445,8 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
   // The model's table and constants, the start state.
   stage(pi, pair_i, pairs * kPairInts, lane);
   stage(pf, pair_f, pairs * kPairFloats, lane);
+  stage(li, link_i, links, lane);
+  stage(lf, link_f, links, lane);
   stage(sKUT, KUT, m * nq, lane);
   __pipeline_commit();
   for (int i = lane; i < nq; i += kThreads) {
@@ -495,18 +529,25 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
       const float* fa = pf + pr * kPairFloats + 1;
       const float* fb = fa + kSideFloats;
       const float mu = pf[pr * kPairFloats];
+      const Links lk{li, lf};
       Side ga, gb;
-      side_geometry(ia, fa, x, ga);
-      side_geometry(ib, fb, x, gb);
+      side_geometry(ia, fa, lk, x, ga);
+      side_geometry(ib, fb, lk, x, gb);
       float phi, py, pz, ny, nz_;
       pair_contact(ga, gb, cc, phi, py, pz, ny, nz_);
-      for (int i = 0; i < nq; ++i) {
-        float jay, jaz, jby, jbz;
-        side_jacobian(ia, ga, py, pz, i, jay, jaz);
-        side_jacobian(ib, gb, py, pz, i, jby, jbz);
-        const float ry = jby - jay, rz = jbz - jaz;
-        const float jn = ny * ry + nz_ * rz;
-        const float jt = (-nz_) * ry + ny * rz;
+      // The relative point Jacobian J_b - J_a, column by column.
+      float ry[NQ], rz[NQ];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        ry[i] = 0.f;
+        rz[i] = 0.f;
+      }
+      side_jacobian(ib, fb, lk, x, gb, py, pz, 1.f, ry, rz);
+      side_jacobian(ia, fa, lk, x, ga, py, pz, -1.f, ry, rz);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const float jn = ny * ry[i] + nz_ * rz[i];
+        const float jt = (-nz_) * ry[i] + ny * rz[i];
         C[row * ldc + i] = -(jn + mu * jt);
         C[(row + 1) * ldc + i] = -(jn - mu * jt);
       }
@@ -678,18 +719,20 @@ rollout_kernel(const float* __restrict__ K,     // (T, m, nz)
 
 // Launches one warp per lane on `stream`; zrw null without the prev-input
 // block, rlb/rub null without relative bounds; `rows` is the table's row
-// count, two for each contact.  Returns cudaGetLastError() as an int (0 on
+// count, two for each contact; `links` the link table's records (at least
+// one, unread without an arm).  Returns cudaGetLastError() as an int (0 on
 // success).
 extern "C" int rollout_chain_f32(
     const float* K, const float* zrx, const float* zrw, const float* ur,
     const float* lb, const float* ub, const float* rlb, const float* rub,
     const float* x0, const float* up0, const float* pdiag, const float* pq,
     const float* KUT, const float* tau, const int* pair_i,
-    const float* pair_f, float* xs, float* us, int lanes, int T, int nq,
-    int m, int nz, int pairs, int rows, int iters, int canon,
-    void* stream) {
+    const float* pair_f, const int* link_i, const float* link_f, float* xs,
+    float* us, int lanes, int T, int nq, int m, int nz, int pairs, int links,
+    int rows, int iters, int canon, void* stream) {
   if (lanes < 1 || T < 1 || nq < 1 || nq > kMaxNq || m < 1 || m > kMaxM ||
       nz > kMaxNz || pairs < 1 || rows < 2 * pairs || rows > kMaxRows ||
+      links < 1 || links > kMaxLinkRecords ||
       rows % 2 || iters < 0 ||
       (nz != nq && nz != nq + m) || (zrw == nullptr) != (nz == nq) ||
       (rlb == nullptr) != (rub == nullptr)) {
@@ -704,7 +747,8 @@ extern "C" int rollout_chain_f32(
     case Q:                                                                 \
       rollout_kernel<Q><<<lanes, kThreads, smem, (cudaStream_t)stream>>>(   \
           K, zrx, zrw, ur, lb, ub, rlb, rub, x0, up0, pdiag, pq, KUT, tau,  \
-          pair_i, pair_f, xs, us, T, tc, m, nz, pairs, rows, iters, canon); \
+          pair_i, pair_f, link_i, link_f, xs, us, T, tc, m, nz, pairs,       \
+          links, rows, iters, canon);                                       \
       break;
     K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4) K4_CASE(5) K4_CASE(6)
     K4_CASE(7) K4_CASE(8) K4_CASE(9) K4_CASE(10) K4_CASE(11) K4_CASE(12)

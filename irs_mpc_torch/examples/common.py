@@ -34,17 +34,29 @@ def committed_curve(name: str) -> np.ndarray:
     return np.loadtxt(ANALYSIS_DIR / f"{name}.csv", ndmin=1)
 
 
-def save_cost_curve(name: str, cost_lst, out_dir=OUT_DIR) -> Path:
-    """``np.savetxt`` of the per-iteration costs to ``out_dir/<name>.csv``,
-    the format of the committed curves."""
+def out_path(out_dir, name: str) -> Path:
+    """``out_dir/name``, the directory made; raises for the committed
+    curves' directory, which the port never writes."""
     out_dir = Path(out_dir)
     if out_dir.resolve() == ANALYSIS_DIR.resolve():
         raise ValueError(f"{ANALYSIS_DIR} holds the committed curves; the "
                          f"port never writes there")
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / f"{name}.csv"
+    return out_dir / name
+
+
+def save_cost_curve(name: str, cost_lst, out_dir=OUT_DIR) -> Path:
+    """``np.savetxt`` of the per-iteration costs to ``out_dir/<name>.csv``,
+    the format of the committed curves."""
+    path = out_path(out_dir, f"{name}.csv")
     np.savetxt(path, np.asarray(cost_lst), delimiter=",")
     return path
+
+
+def median_ms(walls) -> Optional[float]:
+    """The median host ms of the iterations after the first (``iterate``'s
+    seconds), or None for fewer than two."""
+    return statistics.median(walls[1:]) * 1e3 if len(walls) > 1 else None
 
 
 def iterate(solver, iterations: int) -> list:
@@ -64,7 +76,7 @@ def report(solver, name: str, walls=(), out_dir=OUT_DIR,
     """Print the solver's initial, final and best cost and write its curve
     (unless ``save`` is false); ``walls`` are the host seconds of its
     iterations (``iterate``)."""
-    ms = statistics.median(walls[1:]) * 1e3 if len(walls) > 1 else None
+    ms = median_ms(walls)
     print(f"[{name}] initial cost: {solver.cost_lst[0]:.4f}  "
           f"final: {solver.cost:.4f}  best: {solver.cost_best:.4f}"
           + (f"  ({ms:.3f} ms an iteration after the first)"

@@ -6,15 +6,16 @@ write against the JAX package's committed one.
 
 The port's counterpart of ``examples/run_all.py``: the same 15 drivers and
 ``quadrotor_opaque``, each at its JAX driver's budgets, on the card unless
-``--cpu`` is given.  Every curve goes to ``--out`` (by default
-``irs_mpc_torch/_build/curves/``); the committed curves under
-``examples/analysis/`` are only read.  With ``--check`` each single-column
-curve is held to the committed ``<name>.csv`` under ``RULES`` below, no
-GIF is drawn, and a JSON summary goes to ``<out>/check.json``; without it
-the drivers' GIFs are drawn, which needs matplotlib.  Each curve prints
-one line (name, initial and best against the committed ones, the rule,
-the verdict and the median host ms of an iteration after the first), each
-driver its wall seconds.  A driver that raises is reported and the sweep
+``--cpu`` is given.  The four studies (``STUDIES``) run only when named,
+each held by its checks (``STUDY_CHECKS``).  Every curve goes to
+``--out`` (by default ``irs_mpc_torch/_build/curves/``); the committed
+curves under ``examples/analysis/`` are only read.  With ``--check`` each
+single-column curve is held to the committed ``<name>.csv`` under
+``RULES`` below, no GIF is drawn, and a JSON summary goes to
+``<out>/check.json``; without it the drivers' GIFs are drawn, which needs
+matplotlib.  Each curve prints one line (name, initial and best against
+the committed ones, the rule, the verdict and the median host ms of an
+iteration after the first), each driver its wall seconds.  A driver that raises is reported and the sweep
 goes on; the exit code is 1 on any failure or drift.
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ import numpy as np
 from .. import IrsMpc, make_bicycle
 from . import (bicycle, box_pivoting, box_pushing, planar_hand_second_order,
                planar_hand_spin, plate_pickup, quadrotor)
-from .common import ANALYSIS_DIR, OUT_DIR, Curve, iterate
+from .common import ANALYSIS_DIR, OUT_DIR, Curve, committed_curve, iterate
 
 DRIVERS = [
     "pendulum", "bicycle", "quadrotor", "three_cart", "pendulum_nn",
@@ -247,10 +248,10 @@ def check_curve(costs, committed, rule: Rule, device="cuda"):
 
 
 def sweep(drivers, out_dir=OUT_DIR, device="cuda", check=False,
-          analysis_dir=ANALYSIS_DIR, rules=None) -> int:
-    """Run each driver of ``drivers`` ({name: main}) and, with ``check``,
-    hold its curves; returns the exit code (0, or 1 on a failure or a
-    drift)."""
+          analysis_dir=ANALYSIS_DIR, rules=None, studies=()) -> int:
+    """Run each driver of ``drivers`` ({name: main}) and each study of
+    ``studies`` and, with ``check``, hold their curves and numbers;
+    returns the exit code (0, or 1 on a failure or a drift)."""
     rules = RULES if rules is None else rules
     out_dir = Path(out_dir)
     failures, drifts, summary = [], [], []
@@ -274,8 +275,13 @@ def sweep(drivers, out_dir=OUT_DIR, device="cuda", check=False,
             summary[-1]["curves"].append(entry)
             if entry["drifts"]:
                 drifts.append((curve.name, entry["drifts"]))
+    done = run_studies(studies, out_dir, device, check)
+    summary += done[0]
+    failures += done[1]
+    drifts += done[2]
+    runs = len(drivers) + len(studies)
     print(f"total: {time.perf_counter() - t_total:.1f} s; "
-          f"{len(drivers) - len(failures)}/{len(drivers)} drivers OK")
+          f"{runs - len(failures)}/{runs} drivers and studies OK")
     for name, err in failures:
         print(f"  FAILED {name}: {err}")
     if check:
@@ -284,7 +290,7 @@ def sweep(drivers, out_dir=OUT_DIR, device="cuda", check=False,
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "check.json").write_text(json.dumps(summary, indent=1))
         if not drifts and not failures:
-            print("CHECK OK: every curve within its rule")
+            print("CHECK OK: every curve and study within its rule")
     return 1 if failures or drifts else 0
 
 
@@ -315,6 +321,203 @@ def check_one(curve: Curve, analysis_dir, rules, device):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The studies: the JAX package's probes behind PARITY.md's findings, run by
+# name (``run_all --check planar_hand_floor_probe ...``) and never in the
+# default sweep, which the JAX examples/run_all.py does not run them in
+# either.  Each study's ``main(out_dir, device)`` returns its numbers, and
+# its checks below hold them, each with its source.
+# ---------------------------------------------------------------------------
+
+STUDIES = ("planar_hand_floor_probe", "planar_hand_second_order_estimators",
+           "bundle_study", "quadrotor_cem_anneal")
+
+
+def _near(a, b, rtol):
+    return abs(a - b) <= rtol * abs(b)
+
+
+def check_floor_probe(r, device="cuda"):
+    """PARITY.md:114-140 and the committed planar_hand_*_probe.csv."""
+    c = r["curves"]
+    cem_best = min(c["cem"])
+    std_best = min(c["standard"])
+    hold, polish, cem_polish = c["hold"], c["polish"], c["cem_polish"]
+    out = []
+    for label, curve, name in (("cem", c["cem"], "planar_hand_cem"),
+                               ("standard", c["standard"],
+                                "planar_hand_zero_order_B")):
+        drifts, best = check_curve(curve, committed_curve(name),
+                                   RULES.get(name, DEFAULT), device)
+        out.append((f"{label}: held as {name} (best {best:.4f})",
+                    not drifts, RULES.get(name, DEFAULT).source))
+    parity = "PARITY.md:114-140; examples/analysis/planar_hand_*_probe.csv"
+    out += [
+        (f"cem max|du| {r['cem_du_max']:.4f} > the trust bound "
+         f"{r['trust_bound']:.3f} and > the standard run's "
+         f"{r['standard_du_max']:.4f} (JAX: 0.2875 against 0.076)",
+         r["cem_du_max"] > r["trust_bound"]
+         and r["cem_du_max"] > r["standard_du_max"], parity),
+        (f"hold initial {hold[0]:.4f} = the CEM best {cem_best:.4f} within "
+         f"0.1 %", _near(hold[0], cem_best, 1e-3), parity),
+        (f"hold best {min(hold):.4f} = its initial {hold[0]:.4f} (committed "
+         f"best = first value, 6.886)", min(hold) >= hold[0], parity),
+        (f"hold last {hold[-1]:.4f} >= 1.5 x initial (committed 15.30 / "
+         f"6.886 = 2.2x)", hold[-1] >= 1.5 * hold[0], parity),
+        (f"polish initial {polish[0]:.4f} = the standard best "
+         f"{std_best:.4f} within 0.1 %", _near(polish[0], std_best, 1e-3),
+         parity),
+        (f"polish best {min(polish):.4f} in 14.379 +- 12 % and <= its "
+         f"initial", _near(min(polish), 14.379, 0.12)
+         and min(polish) <= polish[0], parity),
+        (f"cem_polish initial {cem_polish[0]:.4f} = the CEM best "
+         f"{cem_best:.4f} within 0.1 %", _near(cem_polish[0], cem_best, 1e-3),
+         parity),
+        (f"cem_polish best {min(cem_polish):.4f} < its initial "
+         f"(committed 6.886 -> 6.688)", min(cem_polish) < cem_polish[0],
+         parity)]
+    return out
+
+
+def check_estimators(r, device="cuda"):
+    """PARITY.md:188-196 and the committed planar_hand_second_estimators
+    .csv: each mode's rel_err_B <= 0.02, rel_err_A within 2x (either way)
+    of the committed value."""
+    src = "PARITY.md:188-196; examples/analysis/planar_hand_second_" \
+          "estimators.csv"
+    lines = (ANALYSIS_DIR / "planar_hand_second_estimators.csv").read_text()
+    committed = {row.split(",")[0]: [float(v) for v in row.split(",")[1:]]
+                 for row in lines.strip().splitlines()[1:]}
+    out = []
+    for mode, (_, _, rel_a, rel_b) in r.items():
+        ref_a = committed[mode][2]
+        out.append((f"{mode} rel_err_B {rel_b:.6f} <= 0.02", rel_b <= 0.02,
+                    src))
+        out.append((f"{mode} rel_err_A {rel_a:.6f} within 2x of the "
+                    f"committed {ref_a:.6f}",
+                    0.5 * ref_a <= rel_a <= 2.0 * ref_a, src))
+    return out
+
+
+# The JAX study's numbers on the CPU, from ``python
+# tests/test_torch_studies.py --jax-bundle``: the deterministic curves, and
+# each bundled slope with its Monte-Carlo standard error over the JAX run's
+# own 3000 samples (the sandwich estimate, as the contact kink makes the
+# residuals heteroscedastic) and its standard deviation over the JAX
+# package's seeds 0-7.  A slope is held within BUNDLE_SIGMAS of the larger
+# of the two: at std 0.01 the slope rests on a few samples that touch the
+# box, and the run's own estimate (6.7e-4) is half the seeds' spread
+# (1.3e-3; the JAX package's seeds 0-7 range over 7.0e-4-4.9e-3).
+BUNDLE_JAX = Path(__file__).with_name("bundle_study_jax.json")
+# tests/test_torch_qp.py: the primal of a float32 PDIP at atol 1e-5.
+BUNDLE_ATOL, BUNDLE_SIGMAS = 1e-5, 3.0
+
+
+def check_bundle(r, device="cuda"):
+    """The deterministic numbers against the JAX package's CPU values at
+    BUNDLE_ATOL; each bundled slope within BUNDLE_SIGMAS Monte-Carlo
+    standard errors of the JAX value (the larger of the run's own and the
+    seeds' spread)."""
+    ref = json.loads(BUNDLE_JAX.read_text())
+    src = f"{BUNDLE_JAX.name} (python tests/test_torch_studies.py " \
+          f"--jax-bundle)"
+    out = []
+    for label, got, want in (
+            ("exact slope", [r["exact_slope"]], [ref["exact_slope"]]),
+            ("101-point sweep", r["sweep"], ref["sweep"]),
+            ("Anitescu true curve", r["Anitescu"]["true"],
+             ref["true_Anitescu"]),
+            ("LCP true curve", r["LCP"]["true"], ref["true_LCP"])):
+        err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        out.append((f"{label}: max abs err {err:.3e} <= {BUNDLE_ATOL}",
+                    err <= BUNDLE_ATOL, src))
+    for std, s in r["slopes"].items():
+        want = ref["slopes"][str(std)]
+        se = max(ref["slope_se"][str(std)], ref["slope_seed_sd"][str(std)])
+        out.append((f"bundled slope std={std}: {s:.5f} against "
+                    f"{want:.5f} (standard error {se:.5f})",
+                    abs(s - want) <= BUNDLE_SIGMAS * se, src))
+    return out
+
+
+# examples/analysis/quadrotor_cem_anneal.csv: its first value and last.
+ANNEAL_INITIAL, ANNEAL_LAST = 178344.03, 9249.9
+
+
+def check_anneal(r, device="cuda"):
+    src = "examples/analysis/quadrotor_cem_anneal.csv; PARITY.md:73"
+    bests = r["phase_bests"]
+    return [
+        (f"initial {r['curve'][0]:.2f} = {ANNEAL_INITIAL} within 0.1 %",
+         _near(r["curve"][0], ANNEAL_INITIAL, REL_TOL_INITIAL), src),
+        ("phase bests " + " -> ".join(f"{b:.1f}" for b in bests)
+         + " do not rise", all(b2 <= b1 for b1, b2 in zip(bests, bests[1:])),
+         src),
+        (f"final best {bests[-1]:.1f} <= 1.12 x {ANNEAL_LAST}",
+         bests[-1] <= (1 + REL_TOL_BEST) * ANNEAL_LAST, src)]
+
+
+STUDY_CHECKS = {"planar_hand_floor_probe": check_floor_probe,
+                "planar_hand_second_order_estimators": check_estimators,
+                "bundle_study": check_bundle,
+                "quadrotor_cem_anneal": check_anneal}
+
+
+def run_studies(names, out_dir=OUT_DIR, device="cuda", check=False):
+    """Run each study of ``names`` and, with ``check``, hold its numbers;
+    returns (summary entries, failures, drifts)."""
+    summary, failures, drifts = [], [], []
+    for name in names:
+        print(f"=== study {name} ===", flush=True)
+        t0 = time.perf_counter()
+        module = importlib.import_module(f"{__package__}.{name}")
+        try:
+            result = module.main(out_dir=out_dir, device=device)
+        except Exception as e:           # report it; the sweep goes on
+            traceback.print_exc()
+            failures.append((name, repr(e)))
+            continue
+        wall = time.perf_counter() - t0
+        print(f"[{name}] wall {wall:.1f} s", flush=True)
+        entry = dict(study=name, seconds=wall, checks=[])
+        if check:
+            for what, ok, source in STUDY_CHECKS[name](result, device):
+                print(f"  {name}: {what} ({source}): "
+                      + ("ok" if ok else "DRIFT"), flush=True)
+                entry["checks"].append(dict(check=what, ok=bool(ok),
+                                            source=source))
+                if not ok:
+                    drifts.append((name, [what]))
+        summary.append(entry)
+    return summary, failures, drifts
+
+
+def study_cli(name: str, argv=None) -> int:
+    """The command line of the study ``name`` (``python -m
+    irs_mpc_torch.examples.<name> [--check] [--cpu] [--out DIR]``): run
+    it and, with ``--check``, hold it by its checks; with ``--check`` a
+    JSON summary goes to ``<out>/check_<name>.json``.  Returns the exit
+    code (1 on a failure or a drift)."""
+    module = importlib.import_module(f"{__package__}.{name}")
+    ap = argparse.ArgumentParser(description=module.__doc__.splitlines()[0])
+    ap.add_argument("--check", action="store_true",
+                    help="hold the study's numbers by its checks")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the kernels' plain versions)")
+    ap.add_argument("--out", type=Path, default=OUT_DIR,
+                    help="where its artifacts go")
+    args = ap.parse_args(argv)
+    summary, failures, drifts = run_studies(
+        [name], args.out, "cpu" if args.cpu else "cuda", args.check)
+    if args.check:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+        (Path(args.out) / f"check_{name}.json").write_text(
+            json.dumps(summary, indent=1))
+        print("CHECK OK" if not (failures or drifts) else
+              f"CHECK: {len(drifts)} drift(s), {len(failures)} failure(s)")
+    return 1 if failures or drifts else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
@@ -324,19 +527,24 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=OUT_DIR,
                     help="where the curves go")
     ap.add_argument("drivers", nargs="*", metavar="driver",
-                    help=f"a subset of {DRIVERS}")
+                    help=f"a subset of {DRIVERS}, or of the studies "
+                         f"{list(STUDIES)}, which only run when named")
     args = ap.parse_args(argv)
-    unknown = sorted(set(args.drivers) - set(DRIVERS))
+    unknown = sorted(set(args.drivers) - set(DRIVERS) - set(STUDIES))
     if unknown:
-        ap.error(f"unknown drivers {unknown}; known: {DRIVERS}")
-    if not args.check and importlib.util.find_spec("matplotlib") is None:
+        ap.error(f"unknown drivers {unknown}; known: {DRIVERS} and the "
+                 f"studies {list(STUDIES)}")
+    studies = [s for s in STUDIES if s in args.drivers]
+    names = [d for d in DRIVERS if d in args.drivers] or (
+        [] if studies else DRIVERS)
+    if (names and not args.check
+            and importlib.util.find_spec("matplotlib") is None):
         ap.error("the drivers' GIFs need matplotlib, which is not "
                  "installed; pass --check to run without them")
-    names = [d for d in DRIVERS if d in args.drivers] or DRIVERS
     drivers = {name: importlib.import_module(f"{__package__}.{name}").main
                for name in names}
     return sweep(drivers, args.out, "cpu" if args.cpu else "cuda",
-                 args.check)
+                 args.check, studies=studies)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 ``linesearch_rollout_cuda`` flattens the model into the pair table of
 ``rollout.make_consts`` (cached per model and device; each pair's first
-row and contact count included) and launches ``csrc/rollout.cu``, one warp
+row and contact count included, every arm's links in a table of their
+own) and launches ``csrc/rollout.cu``, one warp
 per line-search lane, on PyTorch's current stream, or raises; there is no
 fallback.  The kernel makes the input bounds finite as
 ``rollout.bound_rows`` does.  It is the contact model's ``ls_rollout_fn``,
@@ -27,8 +28,8 @@ _consts_cache: dict = {}
 
 
 def _bind(lib):
-    lib.rollout_chain_f32.argtypes = ([ctypes.c_void_p] * 18
-                                      + [ctypes.c_int] * 9
+    lib.rollout_chain_f32.argtypes = ([ctypes.c_void_p] * 20
+                                      + [ctypes.c_int] * 10
                                       + [ctypes.c_void_p])
     lib.rollout_chain_f32.restype = ctypes.c_int
 
@@ -81,14 +82,15 @@ def linesearch_rollout_cuda(model, x0, u_prev0, K, z_ref_x, z_ref_w, u_ref,
            for a in (K, z_ref_x, z_ref_w, u_ref, lb, ub, rel_lb, rel_ub, x0,
                      u_prev0)]
     ins += [c["pdiag"], c["pq"], c["KUT"], c["tau"], c["pair_i"],
-            c["pair_f"]]
+            c["pair_f"], c["link_i"], c["link_f"]]
     xs = torch.empty((A, T + 1, nq), dtype=torch.float32, device=device)
     us = torch.empty((A, T, m), dtype=torch.float32, device=device)
     ptrs = [0 if a is None else a.data_ptr() for a in ins + [xs, us]]
     lib = LIB.load()
     with torch.cuda.device(device):
         err = lib.rollout_chain_f32(
-            *ptrs, A, T, nq, m, nz, len(model.pairs), c["rows"],
+            *ptrs, A, T, nq, m, nz, len(model.pairs), len(c["link_i"]),
+            c["rows"],
             int(model.qp_iters_ws), int(model.canon_warm_duals),
             stream_of(device))
     LIB.check(err, "rollout kernel")

@@ -37,22 +37,26 @@ from ...ops.linalg import solve_spd
 Tensor = torch.Tensor
 
 # Table layout, shared with csrc/rollout.cu.  Per side:
-#   ints   shape, body, i0, i1, i2, idx[MAX_LINKS]
-#   floats radius, v0, v1, s, base y, base z, angle offset,
-#          link_lengths[MAX_LINKS]
+#   ints   shape, body, i0, i1, i2, i3
+#   floats radius, v0, v1, s, base y, base z, angle offset
 # by body kind:
 #   static     circle: (v0, v1) centre; halfspace: (v0, v1) normal, s offset
 #   free       (i0, i1) position, i2 rotation or -1; box: (v0, v1) half
 #              extents
-#   arm        i0 link index, idx joint indices; base, angle offset, lengths
-#   finger     (i0, i1) base position, i2 base rotation or -1, idx[0] slide;
+#   arm        i0 link index k, i3 the arm's first record in the link
+#              table; base, angle offset
+#   finger     (i0, i1) base position, i2 base rotation or -1, i3 slide;
 #              (v0, v1) slide axis, s length, base (y, z) rest offset
 # Per pair: first row, contact count, side a, side b; mu, side a, side b.
-MAX_LINKS = 4
-SIDE_INTS = 5 + MAX_LINKS
-SIDE_FLOATS = 7 + MAX_LINKS
+# The link table holds every arm of the pairs once, link by link: its joint
+# index (``link_i``) and length (``link_f``); an arm of any length, up to
+# MAX_LINK_RECORDS links over all the arms of a model (every link is a
+# joint state, so MAX_NQ bounds a model whose arms share no joint).
+SIDE_INTS = 6
+SIDE_FLOATS = 7
 PAIR_INTS = 2 + 2 * SIDE_INTS
 PAIR_FLOATS = 1 + 2 * SIDE_FLOATS
+MAX_LINK_RECORDS = 64
 SHAPE_CIRCLE, SHAPE_CAPSULE, SHAPE_HALFSPACE, SHAPE_BOX = 0, 1, 2, 3
 BODY_STATIC, BODY_FREE, BODY_ARM, BODY_FINGER = 0, 1, 2, 3
 _SHAPES = {"circle": SHAPE_CIRCLE, "capsule": SHAPE_CAPSULE,
@@ -75,9 +79,7 @@ BIG = 1e9
 
 def _body_kind(body, shape_idx):
     if isinstance(body, geom.Arm2D):
-        if len(body.link_lengths) <= MAX_LINKS:
-            return "capsule"
-        return None
+        return "capsule"
     if isinstance(body, geom.StaticBody):
         s = body.shapes[shape_idx]
         if isinstance(s, geom.HalfSpace):
@@ -170,19 +172,24 @@ def _hessian_constants(model):
     return p_diag, pq_vec, KU, tau
 
 
-def _side_record(body, shape_idx, kind):
-    """(ints, floats) of one side of a pair; see the layout constants."""
+def _side_record(body, shape_idx, kind, arms):
+    """(ints, floats) of one side of a pair; see the layout constants.
+    ``arms`` maps each arm already in the link table to its first record
+    and takes a new arm's links."""
     ints = np.zeros(SIDE_INTS, np.int32)
     flts = np.zeros(SIDE_FLOATS, np.float32)
     ints[0] = _SHAPES[kind]
     ints[4] = -1
     if isinstance(body, geom.Arm2D):
+        if id(body) not in arms["first"]:
+            arms["first"][id(body)] = len(arms["joint"])
+            arms["joint"] += list(body.joint_idx)
+            arms["length"] += list(body.link_lengths)
         ints[1], ints[2] = BODY_ARM, shape_idx
-        ints[5:5 + len(body.joint_idx)] = body.joint_idx
+        ints[5] = arms["first"][id(body)]
         flts[0] = body.radius
         flts[4:6] = body.base
         flts[6] = body.angle_offset
-        flts[7:7 + len(body.link_lengths)] = body.link_lengths
     elif isinstance(body, geom.PrismaticFinger2D):
         ints[1] = BODY_FINGER
         ints[2], ints[3] = body.idx_base_pos
@@ -217,12 +224,14 @@ def _side_record(body, shape_idx, kind):
 
 def make_consts(model, device="cpu"):
     """The constants the chain needs, as f32/i32 tensors on ``device``:
-    ``pdiag``/``pq``/``tau`` (nq,), ``KUT`` (m, nq), and the pair table
-    ``pair_i`` (pairs, PAIR_INTS) / ``pair_f`` (pairs, PAIR_FLOATS).
-    Raises on a pair kind outside ``_PAIR_KINDS``."""
+    ``pdiag``/``pq``/``tau`` (nq,), ``KUT`` (m, nq), the pair table
+    ``pair_i`` (pairs, PAIR_INTS) / ``pair_f`` (pairs, PAIR_FLOATS) and
+    the link table ``link_i`` / ``link_f`` (links,).  Raises on a pair kind
+    outside ``_PAIR_KINDS``, and past MAX_LINK_RECORDS links."""
     p_diag, pq_vec, KU, tau = _hessian_constants(model)
     pair_i = np.zeros((len(model.pairs), PAIR_INTS), np.int32)
     pair_f = np.zeros((len(model.pairs), PAIR_FLOATS), np.float32)
+    arms = {"first": {}, "joint": [], "length": []}
     row = 0
     for k, pair in enumerate(model.pairs):
         kinds = _pair_kinds(model, pair)
@@ -230,19 +239,26 @@ def make_consts(model, device="cpu"):
             raise ValueError(f"pair {k} of model {model.name!r}: no "
                              f"whole-chain narrow phase for {kinds}")
         ia, fa = _side_record(model.bodies[pair.body_a], pair.shape_a,
-                              kinds[0])
+                              kinds[0], arms)
         ib, fb = _side_record(model.bodies[pair.body_b], pair.shape_b,
-                              kinds[1])
+                              kinds[1], arms)
         pair_i[k] = np.concatenate([[row, _contacts(kinds)], ia, ib])
         pair_f[k] = np.concatenate([[pair.mu], fa, fb])
         row += 2 * _contacts(kinds)
+    if len(arms["joint"]) > MAX_LINK_RECORDS:
+        raise ValueError(f"model {model.name!r}: {len(arms['joint'])} arm "
+                         f"links, the link table holds {MAX_LINK_RECORDS}")
+    # An empty table still hands the kernel one (unread) record.
+    link_i = np.asarray(arms["joint"] or [0], np.int32)
+    link_f = np.asarray(arms["length"] or [0.0], np.float32)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {"pdiag": t(p_diag), "pq": t(pq_vec), "KUT": t(KU.T),
             "tau": t(tau), "pair_i": t(pair_i), "pair_f": t(pair_f),
-            "rows": row}
+            "link_i": t(link_i), "link_f": t(link_f),
+            "links": len(arms["joint"]), "rows": row}
 
 
 # ---------------------------------------------------------------------------
@@ -260,21 +276,23 @@ def _frame(si, x):
     return c, th
 
 
-def _arm_joints(si, sf, x):
-    """Base and joints 0..k+1 of an Arm2D up to link k = si[2]."""
+def _arm_joints(si, sf, links, x):
+    """Base and joints 0..k+1 of an Arm2D up to link k = si[2], its links
+    from the link table ``links`` = (joint indices, lengths)."""
+    joint, length = links
     pts = [x.new_tensor([float(sf[4]), float(sf[5])]).expand(x.shape[0], 2)]
     acc = None
-    for j in range(int(si[2]) + 1):
-        a = _col(x, si[5 + j])
+    for j in range(int(si[5]), int(si[5]) + int(si[2]) + 1):
+        a = _col(x, joint[j])
         acc = a if acc is None else acc + a
         ang = acc + float(sf[6])
         d = torch.stack([torch.sin(ang), -torch.cos(ang)], dim=-1) \
-            * float(sf[7 + j])
+            * float(length[j])
         pts.append(pts[-1] + d)
     return pts
 
 
-def _side_geometry(si, sf, x):
+def _side_geometry(si, sf, links, x):
     """World shape of one side for lanes x (B, nq), as
     ``geometry.shape_contact`` takes it: ("circle", c, r),
     ("capsule", a0, a1, r), ("halfspace", n, offset) or
@@ -292,7 +310,7 @@ def _side_geometry(si, sf, x):
             return ("box", c, (float(sf[1]), float(sf[2])), th)
         return ("circle", c, r)
     if body == BODY_ARM:
-        pts = _arm_joints(si, sf, x)
+        pts = _arm_joints(si, sf, links, x)
         k = int(si[2])
         return ("capsule", pts[k], pts[k + 1], r)
     # Finger: tip = base + R(th) (offset + slide * axis); a capsule hangs
@@ -308,7 +326,7 @@ def _side_geometry(si, sf, x):
     return ("circle", tip, r)
 
 
-def _side_jacobian(si, sf, p, x):
+def _side_jacobian(si, sf, links, p, x):
     """(Jy, Jz), each (B, nq), of the point p (B, 2) on one side."""
     body = int(si[1])
     eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
@@ -328,9 +346,9 @@ def _side_jacobian(si, sf, p, x):
             Jy = Jy + a[:, 0:1] * eye[int(si[5])]
             Jz = Jz + a[:, 1:2] * eye[int(si[5])]
     elif body == BODY_ARM:
-        pts = _arm_joints(si, sf, x)
+        pts = _arm_joints(si, sf, links, x)
         for j in range(int(si[2]) + 1):
-            e = eye[int(si[5 + j])]
+            e = eye[int(links[0][int(si[5]) + j])]
             Jy = Jy + (-(p[:, 1] - pts[j][:, 1]))[:, None] * e
             Jz = Jz + (p[:, 0] - pts[j][:, 0])[:, None] * e
     return Jy, Jz
@@ -344,17 +362,18 @@ def assemble(consts, x: Tensor, u: Tensor):
     b = consts["pq"] * x - u @ consts["KUT"] - consts["tau"]
     pair_i = consts["pair_i"].cpu().numpy()
     pair_f = consts["pair_f"].cpu().numpy()
+    links = (consts["link_i"].cpu().numpy(), consts["link_f"].cpu().numpy())
     C_rows, d_cols = [], []
     for ints, flts in zip(pair_i, pair_f):
         ia, ib = ints[2:2 + SIDE_INTS], ints[2 + SIDE_INTS:]
         fa, fb = flts[1:1 + SIDE_FLOATS], flts[1 + SIDE_FLOATS:]
         mu = float(flts[0])
-        contacts = geom.shape_contact(_side_geometry(ia, fa, x),
-                                      _side_geometry(ib, fb, x))
+        contacts = geom.shape_contact(_side_geometry(ia, fa, links, x),
+                                      _side_geometry(ib, fb, links, x))
         assert len(contacts) == ints[1]
         for phi, p, n in contacts:
-            Jay, Jaz = _side_jacobian(ia, fa, p, x)
-            Jby, Jbz = _side_jacobian(ib, fb, p, x)
+            Jay, Jaz = _side_jacobian(ia, fa, links, p, x)
+            Jby, Jbz = _side_jacobian(ib, fb, links, p, x)
             ry, rz = Jby - Jay, Jbz - Jaz
             ny, nz = n[:, 0:1], n[:, 1:2]
             Jn = ny * ry + nz * rz

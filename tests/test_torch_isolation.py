@@ -1,7 +1,9 @@
 """The port imports nothing of JAX: in a fresh interpreter whose importer
 refuses ``jax``, ``flax`` and ``irs_mpc_tpu`` (a ``sys.meta_path`` finder
 that raises ``ImportError``), every module of ``irs_mpc_torch``
-(``pkgutil.walk_packages``) and ``chip_smoke`` import.
+(``pkgutil.walk_packages``) and ``chip_smoke`` import.  None of them loads
+matplotlib while it is imported (the card's machine has none): the
+studies and ``utils/viz.py`` import it inside the functions that draw.
 """
 import subprocess
 import sys
@@ -40,3 +42,15 @@ def test_the_port_and_chip_smoke_import_without_jax():
     assert out.returncode == 0, out.stderr[-4000:]
     # The package's modules, its examples and tools among them.
     assert int(out.stdout.strip()) > 40
+
+
+def test_the_port_imports_no_matplotlib():
+    child = CHILD.replace("assert not leaked, leaked", (
+        "assert not leaked, leaked\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
+        "from irs_mpc_torch.examples import run_all\n"
+        "assert set(run_all.STUDIES) <= set(names[i].rsplit('.', 1)[-1] "
+        "for i in range(len(names)))"))
+    out = subprocess.run([sys.executable, "-c", child], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
