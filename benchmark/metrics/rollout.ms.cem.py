@@ -1,0 +1,5 @@
+"""``rollout.ms`` in the CEM cells, where it moves ``plan_ms.cem``."""
+from benchmark.harness import metric_reader
+
+_BASE = metric_reader("rollout.ms")
+SOURCE, read = _BASE.SOURCE, _BASE.read
