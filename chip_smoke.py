@@ -56,9 +56,10 @@ exit code:
    best at most 12% above 317.41, the same launches; then the same solver
    without its whole-chain rollout (the per-knot warm chain), for its curve;
 12. profiles a box-pushing iteration: each phase synchronised and timed
-   by ``utils.timing.PhaseTimer``, then the device's busy share and
-   kernels in one ``utils.timing.profile_trace`` session, whose Chrome
-   trace (``irs_mpc_torch/_build/trace/``) must name K4's kernel;
+   on the host's clock, then the device's busy share and kernels in one
+   ``utils.timing.profile_trace`` session, whose Chrome trace
+   (``irs_mpc_torch/_build/trace/``) must name K4's kernel and hold the
+   program's own ``irs/`` spans, reported by ``utils.timing.report``;
 13. holds K3 and K1 against their plain versions on the trajectory QP of
    the carrots slice's first iteration (T=10, n=45+5, m=5, u box, 20
    sweeps), then drives the carrots slice (45 dof, 500 contact rows, 30
@@ -172,7 +173,9 @@ from irs_mpc_torch.models.contact import (cuda_qp, cuda_rollout, geometry,
 from irs_mpc_torch.ops import _nvcc, admm, cuda_admm, cuda_riccati, lqr
 from irs_mpc_torch.tools import kernel_inputs
 from irs_mpc_torch.tools.kernel_inputs import bench_problem, capture
-from irs_mpc_torch.utils.timing import PhaseTimer, card_line, profile_trace
+from irs_mpc_torch.utils import timing
+from irs_mpc_torch.utils.timing import (block_until_ready, card_line,
+                                        profile_trace)
 
 REL_TOL = 1e-3          # max|ΔK| / max|K|, the same for k, x and u
 INITIAL_COST = 1856.1541
@@ -1061,19 +1064,23 @@ def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
 
 def profile_iteration(solver, iterations, card, logdir):
     """Where an iteration's time goes: ``iterations`` iterations with each
-    phase timed by a ``PhaseTimer`` that starts after and ends with a
-    device synchronisation (host clock), then as many under
-    ``profile_trace`` unsynchronised, for the device's busy share and its
-    kernels by name; the trace goes to ``logdir`` and must name K4's
-    kernel."""
-    timer = PhaseTimer()
-    anchor = solver.x0                  # block_on: waits for the card
+    phase timed on the host's clock from a device synchronisation to the
+    next, then as many under ``profile_trace`` unsynchronised, for the
+    device's busy share, its kernels by name and the program's own spans;
+    the trace goes to ``logdir`` and must name K4's kernel and the
+    ``irs/iteration`` span."""
+    totals = collections.defaultdict(float)
+    anchor = solver.x0                  # block_until_ready: the card
 
     def timed(key, fn):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
-            with timer.phase(key, block_on=anchor):
+            t0 = time.perf_counter()
+            try:
                 return fn(*args, **kwargs)
+            finally:
+                block_until_ready(anchor)
+                totals[key] += time.perf_counter() - t0
         return run
 
     from irs_mpc_torch.solvers import irs_mpc
@@ -1092,42 +1099,50 @@ def profile_iteration(solver, iterations, card, logdir):
     solver.system = dataclasses.replace(
         system, ls_rollout_fn=timed("line-search chain (K4)",
                                     system.ls_rollout_fn))
-    whole = PhaseTimer()
+    total = 0.0
     try:
         for _ in range(iterations):
             torch.cuda.synchronize()
-            with whole.phase("iteration", block_on=anchor):
-                solver.iterate(1, verbose=False)
+            t0 = time.perf_counter()
+            solver.iterate(1, verbose=False)
+            block_until_ready(anchor)
+            total += time.perf_counter() - t0
     finally:
         for (mod, name, _), fn in zip(patches, real):
             setattr(mod, name, fn)
         for name in ("_build_problem", "_box_bounds", "eval_cost"):
             delattr(solver, name)
         solver.system = system
-    for key, s in timer.totals.items():
+    for key, s in totals.items():
         print(f"[profile] {key}: {s / iterations * 1e3:.3f} ms")
-    total = whole.totals["iteration"]
-    rest = total - sum(timer.totals.values())
+    rest = total - sum(totals.values())
     print(f"[profile] remainder: {rest / iterations * 1e3:.3f} ms; "
           f"iteration, synchronised: {total / iterations * 1e3:.3f} ms "
           f"(mean of {iterations}; {card})")
 
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
+    timing.reset()
     with profile_trace(logdir) as prof:
         t0 = time.perf_counter()
         solver.iterate(iterations, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     trace = Path(logdir) / "trace.json"
-    check(trace.exists() and "rollout_kernel" in trace.read_text(),
-          f"profile: {trace} is missing or names no K4 kernel")
+    text = trace.read_text() if trace.exists() else ""
+    check("rollout_kernel" in text and "irs/iteration" in text,
+          f"profile: {trace} is missing, or names no K4 kernel or no "
+          f"irs/iteration span")
     print(f"[profile] trace {trace}: {trace.stat().st_size} bytes, names "
-          f"K4's rollout_kernel")
+          f"K4's rollout_kernel and the program's spans; their host ms "
+          f"over {iterations} iterations, unsynchronised:")
+    print(timing.report())
+    timing.reset()
     by_name = collections.defaultdict(float)
     count = 0
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # The program's irs/ ranges are shown on the device too: not work.
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
             by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
             count += 1
     busy = sum(by_name.values())

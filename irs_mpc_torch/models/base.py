@@ -12,6 +12,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils import timing
+
 Tensor = torch.Tensor
 StepFn = Callable[[Tensor, Tensor], Tensor]
 # Sample projection onto a constraint manifold, batched over knots:
@@ -79,11 +81,14 @@ class System:
         """Batched fat Jacobian: (B,n), (B,m) -> (B,n,n+m)."""
         return torch.func.vmap(self.jacobian_xu)(x, u)
 
+    @timing.spanned("chain")
     def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
         """Open-loop rollout: (n,), (..., T, m) -> the (..., T+1, n) state
         trajectories, through the warm-started chain when the system has
         one.  Leading dims of ``u_trj`` are independent chains, each from
-        ``x0``, all stepped together."""
+        ``x0``, all stepped together.  Its span ``chain`` counts the
+        ``knots`` it steps."""
+        timing.count("knots", u_trj.shape[-2])
         x = x0.expand(u_trj.shape[:-2] + x0.shape)
         xs = [x]
         if self.step_ws_fn is not None:

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import timing
 from . import _nvcc
 from . import lqr as lqr_ops
 
@@ -71,7 +72,8 @@ class _SVals(NamedTuple):
 def _w_selector(idx_w, n, m, like):
     """W (m, n) with w = W x (the prev-input block)."""
     W = like.new_zeros((m, n))
-    W[torch.arange(m, device=like.device), idx_w] = 1.0
+    with timing.span("sync"):       # the value 1 is copied from the host
+        W[torch.arange(m, device=like.device), idx_w] = 1.0
     return W
 
 

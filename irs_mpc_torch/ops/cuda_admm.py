@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ..utils import timing
 from . import admm as admm_ops
 from ._nvcc import KernelLibrary, check_tensors, stream_of
 
@@ -88,8 +89,10 @@ def solve_boxed_tvlqr_cuda(prob, bounds, z0, y0, n_phys: int, idx_w,
         shapes[f"y0.{kd}"] = (getattr(y0, kd), dims[kd])
     if bounds.du is not None:
         want = torch.arange(n_phys, n)
-        if (n - n_phys != m or idx_w is None
-                or not torch.equal(idx_w.cpu(), want)):
+        with timing.span("sync"):           # idx_w's copy to the host
+            fits = (n - n_phys == m and idx_w is not None
+                    and torch.equal(idx_w.cpu(), want))
+        if not fits:
             raise ValueError("the ADMM kernel takes a du box only with the "
                              "prev-input block at x[n_phys:] (idx_w = "
                              "arange(n_phys, n))")

@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.base import System
+from ..utils import timing
 from .linalg import solve_spd
 
 Tensor = torch.Tensor
@@ -257,7 +258,8 @@ def decouple_AB(tv: TvLinearization, indices_u_into_x, x_trj: Tensor,
     T, n, m = tv.B.shape
     eye_n = torch.eye(n, dtype=tv.A.dtype, device=tv.A.device)
     A = eye_n.expand(T, n, n).clone()
-    A[:, :, indices_u_into_x] = 0.0
+    with timing.span("sync"):       # the value 0 is copied from the host
+        A[:, :, indices_u_into_x] = 0.0
     B = tv.B.clone()
     B[:, indices_u_into_x, :] = torch.eye(m, dtype=tv.B.dtype,
                                           device=tv.B.device)

@@ -26,6 +26,7 @@ import torch
 
 from ..models.base import System
 from ..ops import _nvcc
+from ..utils import timing
 
 Tensor = torch.Tensor
 
@@ -106,6 +107,13 @@ class CrossEntropyMethod:
     default raises."""
 
     def __init__(self, system: System, params: CemParams, device="cuda"):
+        # The solver's id, which every span of its plan carries.
+        self.plan = timing.new_plan()
+        with timing.span("plan_init", plan=self.plan):
+            self._init(system, params, device)
+
+    def _init(self, system, params, device):
+        """The constructor's work, inside its ``plan_init`` span."""
         self.system = system
         self.params = params
         self.device = dev = torch.device(device)
@@ -154,7 +162,9 @@ class CrossEntropyMethod:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(p.seed)
         self.x_trj = self.rollout(self.u_trj[None])[0]
-        self.cost = float(self.eval_cost(self.x_trj, self.u_trj))
+        cost = self.eval_cost(self.x_trj, self.u_trj)
+        with timing.span("sync"):
+            self.cost = float(cost)
 
         self.x_trj_lst = [self.x_trj]
         self.u_trj_lst = [self.u_trj]
@@ -162,10 +172,11 @@ class CrossEntropyMethod:
         self.cost_best = self.cost
         self.x_trj_best = self.x_trj
         self.u_trj_best = self.u_trj
-        self.start_time = time.time()
+        self.start_time = time.perf_counter()
         self.iter = 1
 
     # ------------------------------------------------------------------
+    @timing.spanned("cost")
     def eval_cost(self, x_trj: Tensor, u_trj: Tensor) -> Tensor:
         """The trajectory cost, of shape (...) for x (..., T+1, n),
         u (..., T, m): running state cost with Q, the final state with Q
@@ -190,7 +201,8 @@ class CrossEntropyMethod:
         CUDA tensors where it has one, else ``System.rollout``."""
         sys = self.system
         if sys.ls_rollout_fn is None or not _nvcc.on_card(u_b):
-            return sys.rollout(self.x0, u_b)
+            with timing.span("rollout"):
+                return sys.rollout(self.x0, u_b)
         B, T, m = u_b.shape
         if B not in self._chain_args:
             n = sys.dim_x
@@ -202,9 +214,10 @@ class CrossEntropyMethod:
                 z_ref_x=self.x0.expand(B, T, n).contiguous(),
                 lb=-inf, ub=inf)
         a = self._chain_args[B]
-        xs, _ = sys.ls_rollout_fn(self.x0, a["u_prev0"], a["K"],
-                                  a["z_ref_x"], None, u_b, a["lb"], a["ub"],
-                                  None, None)
+        with timing.span("rollout"):
+            xs, _ = sys.ls_rollout_fn(self.x0, a["u_prev0"], a["K"],
+                                      a["z_ref_x"], None, u_b, a["lb"],
+                                      a["ub"], None, None)
         return xs
 
     def _noise(self, noise: Optional[Tensor]) -> Tensor:
@@ -237,45 +250,58 @@ class CrossEntropyMethod:
         ``noise`` supplies the raw standard-normal draw (see ``_noise``)
         instead of the generator."""
         p = self.params
-        cand = u_trj[None] + std_trj[None] * self._noise(noise)
-        if kept is not None:
-            # The previous elites survive resampling verbatim (first rows).
-            cand = torch.cat([kept, cand[p.elite_keep:]], dim=0)
-        if self._u_box is not None:
-            cand = torch.minimum(torch.maximum(cand, self._u_box[0]),
-                                 self._u_box[1])
+        with timing.span("sample"):
+            cand = u_trj[None] + std_trj[None] * self._noise(noise)
+            if kept is not None:
+                # The previous elites survive resampling verbatim (first
+                # rows).
+                cand = torch.cat([kept, cand[p.elite_keep:]], dim=0)
+            if self._u_box is not None:
+                cand = torch.minimum(torch.maximum(cand, self._u_box[0]),
+                                     self._u_box[1])
         xs = self.rollout(cand)
         costs = self.eval_cost(xs, cand)
-        # Diverged rollouts (NaN/inf cost) never become elites.
-        costs = torch.where(torch.isfinite(costs), costs, torch.inf)
-        elite_idx = torch.topk(costs, p.n_elite, largest=False).indices
-        elites = cand[elite_idx]
-        u_new = elites.mean(0)
-        std_new = elites.std(0, correction=0)
-        if p.momentum > 0:
-            a = np.float32(p.momentum)
-            u_new = (1 - a) * u_new + a * u_trj
-            std_new = (1 - a) * std_new + a * std_trj
-        kept_new = elites[:p.elite_keep] if kept is not None else None
+        # The refit: two spans, around the mean's rollout and cost.
+        with timing.span("refit"):
+            # Diverged rollouts (NaN/inf cost) never become elites.
+            costs = torch.where(torch.isfinite(costs), costs, torch.inf)
+            elite_idx = torch.topk(costs, p.n_elite, largest=False).indices
+            elites = cand[elite_idx]
+            u_new = elites.mean(0)
+            std_new = elites.std(0, correction=0)
+            if p.momentum > 0:
+                a = np.float32(p.momentum)
+                u_new = (1 - a) * u_new + a * u_trj
+                std_new = (1 - a) * std_new + a * std_trj
+            kept_new = elites[:p.elite_keep] if kept is not None else None
         x_new = self.rollout(u_new[None])[0]
         cost_new = self.eval_cost(x_new, u_new)
-        # Divergence guard: the elites' mean can blow up on stiff systems
-        # even when every elite was finite.  Fall back to the best elite
-        # (its trajectory from the population's rollout) at half the std;
-        # if the whole population diverged, keep the previous mean, its
-        # trajectory, cost and std.
-        best = elite_idx[0]
-        best_cost = costs[best]
-        bad_mean = ~torch.isfinite(cost_new)
-        use_elite = bad_mean & torch.isfinite(best_cost)
-        use_prev = bad_mean & ~torch.isfinite(best_cost)
-        w = torch.where
-        u_new = w(use_prev, u_trj, w(use_elite, cand[best], u_new))
-        x_new = w(use_prev, prev_x, w(use_elite, xs[best], x_new))
-        cost_new = w(use_prev, prev_cost, w(use_elite, best_cost, cost_new))
-        std_new = w(use_prev, std_trj, w(use_elite, 0.5 * std_trj, std_new))
-        if self._std_floor is not None:
-            std_new = torch.maximum(std_new, self._std_floor)
+        with timing.span("refit"):
+            # Divergence guard: the elites' mean can blow up on stiff
+            # systems even when every elite was finite.  Fall back to the
+            # best elite (its trajectory from the population's rollout) at
+            # half the std; if the whole population diverged, keep the
+            # previous mean, its trajectory, cost and std.
+            best = elite_idx[0]
+            # Each index by a device scalar reads it on the host.
+            with timing.span("sync"):
+                best_cost = costs[best]
+            with timing.span("sync"):
+                best_u = cand[best]
+            with timing.span("sync"):
+                best_x = xs[best]
+            bad_mean = ~torch.isfinite(cost_new)
+            use_elite = bad_mean & torch.isfinite(best_cost)
+            use_prev = bad_mean & ~torch.isfinite(best_cost)
+            w = torch.where
+            u_new = w(use_prev, u_trj, w(use_elite, best_u, u_new))
+            x_new = w(use_prev, prev_x, w(use_elite, best_x, x_new))
+            cost_new = w(use_prev, prev_cost,
+                         w(use_elite, best_cost, cost_new))
+            std_new = w(use_prev, std_trj,
+                        w(use_elite, 0.5 * std_trj, std_new))
+            if self._std_floor is not None:
+                std_new = torch.maximum(std_new, self._std_floor)
         return CemStep(x=x_new, u=u_new, std=std_new, cost=cost_new,
                        kept=kept_new, cand=cand, costs=costs,
                        elite_idx=elite_idx)
@@ -285,23 +311,30 @@ class CrossEntropyMethod:
         """Run exactly ``max_iterations`` iterations; the only host read
         per iteration is the accepted cost."""
         for _ in range(max_iterations):
-            st = self._step(self.u_trj, self.std_trj, self.x_trj,
-                            torch.tensor(self.cost, device=self.device),
-                            self.kept)
-            cost = float(st.cost)
-            if verbose:
-                print(f"Iteration: {self.iter:02d} || Current Cost: "
-                      f"{cost:.6f} || Elapsed time: "
-                      f"{time.time() - self.start_time:.5f}")
-            self.x_trj_lst.append(st.x)
-            self.u_trj_lst.append(st.u)
-            self.cost_lst.append(cost)
-            if cost < self.cost_best:
-                self.cost_best = cost
-                self.x_trj_best = st.x
-                self.u_trj_best = st.u
-            self.x_trj, self.u_trj, self.std_trj = st.x, st.u, st.std
-            self.kept = st.kept
-            self.cost = cost
-            self.iter += 1
+            with timing.span("iteration", plan=self.plan):
+                self._iterate_once(verbose)
         return self.x_trj, self.u_trj, self.cost
+
+    def _iterate_once(self, verbose):
+        """One pass of ``iterate``'s loop."""
+        with timing.span("sync"):
+            prev_cost = torch.tensor(self.cost, device=self.device)
+        st = self._step(self.u_trj, self.std_trj, self.x_trj, prev_cost,
+                        self.kept)
+        with timing.span("sync"):
+            cost = float(st.cost)
+        if verbose:
+            print(f"Iteration: {self.iter:02d} || Current Cost: "
+                  f"{cost:.6f} || Elapsed time: "
+                  f"{time.perf_counter() - self.start_time:.5f}")
+        self.x_trj_lst.append(st.x)
+        self.u_trj_lst.append(st.u)
+        self.cost_lst.append(cost)
+        if cost < self.cost_best:
+            self.cost_best = cost
+            self.x_trj_best = st.x
+            self.u_trj_best = st.u
+        self.x_trj, self.u_trj, self.std_trj = st.x, st.u, st.std
+        self.kept = st.kept
+        self.cost = cost
+        self.iter += 1

@@ -36,6 +36,7 @@ from ..ops import lqr as lqr_ops
 from ..ops.estimators import (SmoothingConfig, TvLinearization, decouple_AB,
                               estimate_tv_matrices_fnom)
 from ..parallel.sharded import sharded_estimate_tv_matrices
+from ..utils import timing
 
 Tensor = torch.Tensor
 
@@ -140,6 +141,13 @@ class IrsMpc:
 
     def __init__(self, system: System, params: IrsMpcParams,
                  device="cuda"):
+        # The solver's id, which every span of its plan carries.
+        self.plan = timing.new_plan()
+        with timing.span("plan_init", plan=self.plan):
+            self._init(system, params, device)
+
+    def _init(self, system, params, device):
+        """The constructor's work, inside its ``plan_init`` span."""
         self.system = system
         self.params = params
         self.device = torch.device(device)
@@ -181,7 +189,9 @@ class IrsMpc:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(p.seed)
         self.x_trj = system.rollout(self.x0, self.u_trj)
-        self.cost = float(self.eval_cost(self.x_trj, self.u_trj)[0])
+        cost = self.eval_cost(self.x_trj, self.u_trj)[0]
+        with timing.span("sync"):
+            self.cost = float(cost)
 
         self.x_trj_lst = [self.x_trj]
         self.u_trj_lst = [self.u_trj]
@@ -191,7 +201,7 @@ class IrsMpc:
         self.u_trj_best = self.u_trj
         self.cost_best = self.cost
         self.iter = 1
-        self.start_time = time.time()
+        self.start_time = time.perf_counter()
 
     # ------------------------------------------------------------------
     def _validate(self):
@@ -235,6 +245,7 @@ class IrsMpc:
                              f"{lqr_ops.BACKENDS}")
 
     # ------------------------------------------------------------------
+    @timing.spanned("cost")
     def eval_cost(self, x_trj: Tensor, u_trj: Tensor):
         """Returns (total, cost_Qu, cost_Qu_final, cost_Qa, cost_Qa_final,
         cost_R), each of shape (...) for x (..., T+1, n), u (..., T, m).
@@ -279,7 +290,12 @@ class IrsMpc:
 
     def _bound(self, name):
         b = getattr(self.params, name)
-        return None if b is None else _on(b, self.device)
+        if b is None or (isinstance(b, Tensor) and b.device == self.device
+                         and b.dtype == torch.float32):
+            return b
+        # A copy from the host waits for the device's queue.
+        with timing.span("sync"):
+            return _on(b, self.device)
 
     def _has_bounds(self):
         p = self.params
@@ -363,18 +379,21 @@ class IrsMpc:
         # linearises the true system.
         est_sys = (sys if p.gradient_mode == "exact"
                    else p.estimation_system or sys)
-        if p.mesh is not None:
-            tv = sharded_estimate_tv_matrices(
-                est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
-                self.smoothing, p.mesh, perturbations)
-            f_nom = None
-        else:
-            # need_A=False: decouple_AB is about to overwrite A.
-            tv, f_nom = estimate_tv_matrices_fnom(
-                est_sys, p.gradient_mode, x_trj, u_trj, self.generator, it,
-                self.smoothing, perturbations, need_A=not p.decouple_AB)
-        if p.decouple_AB:
-            tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys, f_nom=f_nom)
+        with timing.span("estimation"):
+            if p.mesh is not None:
+                tv = sharded_estimate_tv_matrices(
+                    est_sys, p.gradient_mode, x_trj, u_trj, self.generator,
+                    it, self.smoothing, p.mesh, perturbations)
+                f_nom = None
+            else:
+                # need_A=False: decouple_AB is about to overwrite A.
+                tv, f_nom = estimate_tv_matrices_fnom(
+                    est_sys, p.gradient_mode, x_trj, u_trj, self.generator,
+                    it, self.smoothing, perturbations,
+                    need_A=not p.decouple_AB)
+            if p.decouple_AB:
+                tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys,
+                                 f_nom=f_nom)
 
         prob = self._build_problem(tv, x_trj)
         if p.forward_mode == "resolve":
@@ -382,14 +401,17 @@ class IrsMpc:
         if self._has_bounds():
             idx_w = (torch.arange(n, n + m, device=self.device)
                      if self._aug else None)
-            sol = admm_ops.solve_boxed_tvlqr(
-                prob, self._box_bounds(x_trj), n_phys=n, idx_w=idx_w,
-                rho=p.admm_rho, iters=p.admm_iters,
-                over_relax=p.admm_over_relax, parallel=self._assoc)
+            bounds = self._box_bounds(x_trj)
+            with timing.span("lqr"):
+                sol = admm_ops.solve_boxed_tvlqr(
+                    prob, bounds, n_phys=n, idx_w=idx_w, rho=p.admm_rho,
+                    iters=p.admm_iters, over_relax=p.admm_over_relax,
+                    parallel=self._assoc)
             K, z_plan, u_plan = sol.gains.K, sol.x_trj, sol.u_trj
         else:
-            z_plan, u_plan, gains = lqr_ops.lqr_solve(prob,
-                                                      parallel=self._assoc)
+            with timing.span("lqr"):
+                z_plan, u_plan, gains = lqr_ops.lqr_solve(
+                    prob, parallel=self._assoc)
             K = gains.K
         # Sanitise: a degenerate estimate must not poison the alpha=0 lane,
         # which reproduces the nominal trajectory exactly.
@@ -415,16 +437,17 @@ class IrsMpc:
         z_ref = z_nom + a3 * (z_plan[:-1] - z_nom)         # (A, T, nz)
         u_ref = u_trj + a3 * (u_plan - u_trj)              # (A, T, m)
 
-        if sys.ls_rollout_fn is not None and _nvcc.on_card(x_trj):
-            # The whole chain, every lane and knot, in one kernel launch.
-            xs_all, us_all = sys.ls_rollout_fn(
-                x_trj[0], u_prev0, K,
-                z_ref[..., :n], z_ref[..., n:] if self._aug else None,
-                u_ref, lb, ub, rel_lb, rel_ub)
-        else:
-            xs_all, us_all = self._rollout_lanes(x_trj[0], u_prev0, K,
-                                                 z_ref, u_ref, lb, ub,
-                                                 rel_lb, rel_ub)
+        with timing.span("rollout"):
+            if sys.ls_rollout_fn is not None and _nvcc.on_card(x_trj):
+                # The whole chain, every lane and knot, in one launch.
+                xs_all, us_all = sys.ls_rollout_fn(
+                    x_trj[0], u_prev0, K,
+                    z_ref[..., :n], z_ref[..., n:] if self._aug else None,
+                    u_ref, lb, ub, rel_lb, rel_ub)
+            else:
+                xs_all, us_all = self._rollout_lanes(x_trj[0], u_prev0, K,
+                                                     z_ref, u_ref, lb, ub,
+                                                     rel_lb, rel_ub)
         costs_all = torch.stack(self.eval_cost(xs_all, us_all), dim=1)
 
         totals = torch.where(torch.isnan(costs_all[:, 0]), torch.inf,
@@ -553,35 +576,42 @@ class IrsMpc:
         """Run exactly ``max_iterations`` descent iterations.  The only host
         read per iteration is the accepted cost vector."""
         for _ in range(max_iterations):
-            t0 = time.time()
-            step = self._iteration(self.x_trj, self.u_trj, self.iter)
-            x_new, u_new = step.x, step.u
-            total, c_qu, c_quf, c_qa, c_qaf, c_r = step.cvec.tolist()
-            wall = time.time() - t0
-            if verbose:
-                print(f"Iteration: {self.iter:02d} || Current Cost: "
-                      f"{total:.6f} || Elapsed time: "
-                      f"{time.time() - self.start_time:.5f}")
-
-            self.x_trj_lst.append(x_new)
-            self.u_trj_lst.append(u_new)
-            self.cost_lst.append(total)
-            self.stats_lst.append(IterationStats(
-                cost=total, cost_Qu=c_qu, cost_Qu_final=c_quf,
-                cost_Qa=c_qa, cost_Qa_final=c_qaf, cost_R=c_r,
-                wall_time=wall))
-
-            if total < self.cost_best:
-                self.cost_best = total
-                self.x_trj_best = x_new
-                self.u_trj_best = u_new
-
-            if self.params.iteration_callback is not None:
-                self.params.iteration_callback(self.iter, x_new, u_new)
-
-            self.cost = total
-            self.x_trj = x_new
-            self.u_trj = u_new
-            self.iter += 1
-
+            with timing.span("iteration", plan=self.plan) as rec:
+                self._iterate_once(rec, verbose)
         return self.x_trj, self.u_trj, self.cost
+
+    def _iterate_once(self, rec, verbose):
+        """One pass of ``iterate``'s loop, in its span ``rec`` (None when
+        the tracer is off): ``wall_time`` is host seconds on that span's
+        clock, ``time.perf_counter``'s."""
+        t0 = time.perf_counter_ns() if rec is None else rec.t0
+        step = self._iteration(self.x_trj, self.u_trj, self.iter)
+        x_new, u_new = step.x, step.u
+        with timing.span("sync"):
+            total, c_qu, c_quf, c_qa, c_qaf, c_r = step.cvec.tolist()
+        wall = (time.perf_counter_ns() - t0) * 1e-9
+        if verbose:
+            print(f"Iteration: {self.iter:02d} || Current Cost: "
+                  f"{total:.6f} || Elapsed time: "
+                  f"{time.perf_counter() - self.start_time:.5f}")
+
+        self.x_trj_lst.append(x_new)
+        self.u_trj_lst.append(u_new)
+        self.cost_lst.append(total)
+        self.stats_lst.append(IterationStats(
+            cost=total, cost_Qu=c_qu, cost_Qu_final=c_quf,
+            cost_Qa=c_qa, cost_Qa_final=c_qaf, cost_R=c_r,
+            wall_time=wall))
+
+        if total < self.cost_best:
+            self.cost_best = total
+            self.x_trj_best = x_new
+            self.u_trj_best = u_new
+
+        if self.params.iteration_callback is not None:
+            self.params.iteration_callback(self.iter, x_new, u_new)
+
+        self.cost = total
+        self.x_trj = x_new
+        self.u_trj = u_new
+        self.iter += 1

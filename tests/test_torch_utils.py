@@ -2,13 +2,14 @@
 demands of the JAX package's utils, on the CPU: checkpoint resume bit for
 bit, the CEM's saved fields and generator state, the config's JSON round
 trip, the system registry and its ``contact_model`` override (the LCP
-step's boundary layer against the JAX package's at atol 1e-5), the phase
-timer, the plots and animations (where matplotlib is installed), and that
+step's boundary layer against the JAX package's at atol 1e-5), the
+tracer's report of its phases, the plots and animations (where matplotlib is installed), and that
 importing the port loads no matplotlib.
 """
 import dataclasses
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -24,7 +25,8 @@ from irs_mpc_torch.examples import pendulum  # noqa: E402
 from irs_mpc_torch.utils.checkpoint import (load_checkpoint,  # noqa: E402
                                             save_checkpoint)
 from irs_mpc_torch.utils.config import ExperimentConfig, make_system  # noqa: E402
-from irs_mpc_torch.utils.timing import PhaseTimer, block_until_ready  # noqa: E402
+from irs_mpc_torch.utils import timing  # noqa: E402
+from irs_mpc_torch.utils.timing import block_until_ready  # noqa: E402
 from irs_mpc_tpu.utils import config as jconfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -128,17 +130,24 @@ def test_build_system_threads_contact_model():
 
 
 def test_phase_timer():
-    t = PhaseTimer()
+    """The tracer's report: host ms by span name, with its calls, the
+    largest total first; reset empties it."""
     x = torch.ones(3)
-    with t.phase("a"):
-        pass
-    with t.phase("a", block_on={"x": [x, (x,)]}):
-        pass
-    assert t.counts["a"] == 2 and t.totals["a"] >= 0.0
-    assert "a" in t.report()
+    timing.reset()
+    with timing.tracing():
+        with timing.span("a"):
+            pass
+        with timing.span("a"):
+            block_until_ready({"x": [x, (x,)]})
+        with timing.span("b"):
+            time.sleep(0.02)
+    lines = timing.report().splitlines()
+    assert [ln.split()[0] for ln in lines] == ["b", "a"]
+    assert "calls     2" in lines[1] and "calls     1" in lines[0]
+    assert float(lines[0].split()[2]) >= 20.0
     assert block_until_ready(x) is x           # CPU tensors: nothing to wait
-    t.reset()
-    assert not t.totals and not t.counts
+    timing.reset()
+    assert timing.records() == [] and timing.report() == ""
 
 
 def test_viz_smoke(tmp_path):
