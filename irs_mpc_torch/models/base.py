@@ -12,6 +12,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops import _nvcc
 from ..utils import timing
 
 Tensor = torch.Tensor
@@ -21,6 +22,10 @@ StepFn = Callable[[Tensor, Tensor], Tensor]
 #     -> (x_proj (T,S,n), u_proj (T,S,m)).
 ProjectionFn = Callable[[Tensor, Tensor, Tensor, Tensor],
                         tuple[Tensor, Tensor]]
+
+# The constant arguments of ``System.rollout``'s kernel route (u_prev0,
+# K = 0, lb = -inf, ub = inf), made once for each (T, m, n, device).
+_CHAIN_ARGS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -50,8 +55,9 @@ class System:
     # Whole-chain line-searched feedback rollout,
     #   (x0, u_prev0, K, z_ref_x, z_ref_w | None, u_ref, lb, ub,
     #    rel_lb | None, rel_ub | None) -> (xs (A,T+1,n), us (A,T,m)),
-    # which the solver takes for CUDA tensors (kernel K4 for contact
-    # models).  Must match the solver's plain rollout loop.
+    # which the solver and ``rollout`` take for float32 CUDA tensors
+    # (kernel K4 for contact models).  Must match the solver's plain
+    # rollout loop and, with zero gains and no bounds, the warm chain.
     ls_rollout_fn: Optional[Callable] = None
     # Hand-written batched step, (B,n), (B,m) -> (B,n) (kernel K2 for the
     # contact models' estimation surrogate on CUDA); must agree with
@@ -84,11 +90,18 @@ class System:
     @timing.spanned("chain")
     def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
         """Open-loop rollout: (n,), (..., T, m) -> the (..., T+1, n) state
-        trajectories, through the warm-started chain when the system has
-        one.  Leading dims of ``u_trj`` are independent chains, each from
-        ``x0``, all stepped together.  Its span ``chain`` counts the
-        ``knots`` it steps."""
+        trajectories.  Leading dims of ``u_trj`` are independent chains,
+        each from ``x0``, all stepped together.  Float32 tensors on the
+        card go through the system's whole-chain rollout where it has one
+        (one K4 launch: zero gains, no bounds, the inputs as the lanes'
+        plan), counted ``chain_kernel``; every other call steps the warm
+        chain (the plain one without ``step_ws_fn``) knot by knot.  Its
+        span ``chain`` counts the ``knots`` it steps."""
         timing.count("knots", u_trj.shape[-2])
+        if (self.ls_rollout_fn is not None and _nvcc.on_card(u_trj)
+                and x0.dtype == u_trj.dtype == torch.float32):
+            timing.count("chain_kernel")
+            return self._rollout_kernel(x0, u_trj)
         x = x0.expand(u_trj.shape[:-2] + x0.shape)
         xs = [x]
         if self.step_ws_fn is not None:
@@ -102,10 +115,27 @@ class System:
                 xs.append(x)
         return torch.stack(xs, dim=-2)
 
+    def _rollout_kernel(self, x0: Tensor, u_trj: Tensor) -> Tensor:
+        """``rollout``'s chains as open-loop lanes of ``ls_rollout_fn``,
+        the leading dims of ``u_trj`` flattened into lanes."""
+        T, m = u_trj.shape[-2:]
+        n, dev = self.dim_x, u_trj.device
+        key = (T, m, n, dev)
+        if key not in _CHAIN_ARGS:
+            inf = torch.full((T, m), torch.inf, device=dev)
+            _CHAIN_ARGS[key] = (torch.zeros(m, device=dev),
+                                torch.zeros((T, m, n), device=dev), -inf, inf)
+        u_prev0, K, lb, ub = _CHAIN_ARGS[key]
+        u_ref = u_trj.reshape(-1, T, m)
+        xs, _ = self.ls_rollout_fn(x0, u_prev0, K,
+                                   x0.expand(u_ref.shape[0], T, n), None,
+                                   u_ref, lb, ub, None, None)
+        return xs.reshape(u_trj.shape[:-2] + (T + 1, n))
+
     def rollout_batch(self, x0: Tensor, u_trj_b: Tensor) -> Tensor:
         """Population rollout: (n,), (B, T, m) -> (B, T+1, n), through
         ``step_batch_fn`` when the system has one (cold batched steps),
-        else through the warm chains of ``rollout``, all B at once."""
+        else through ``rollout``, all B at once."""
         if self.step_batch_fn is None:
             return self.rollout(x0, u_trj_b)
         x = x0.expand(u_trj_b.shape[0], -1)

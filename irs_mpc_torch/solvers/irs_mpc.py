@@ -137,7 +137,10 @@ class IrsMpc:
     ``cost_lst`` and best-so-far in ``*_best``.  Trajectories stay tensors
     on ``device``: the card by default, where the kernels run; "cpu" runs
     the plain PyTorch versions.  Without a CUDA device the default
-    raises."""
+    raises.  The constructor rolls out the initial guess through
+    ``System.rollout``: one launch of the system's whole-chain kernel (K4)
+    on the card where the system has one, the warm chain knot by knot
+    elsewhere."""
 
     def __init__(self, system: System, params: IrsMpcParams,
                  device="cuda"):

@@ -5,9 +5,10 @@ its phase timer.  ``span(name)`` and ``count(name, k)`` mark the solvers'
 phases where they run (``plan_init``, ``iteration``, ``estimation``,
 ``lqr``, ``rollout``, ``cost``, ``chain`` with its ``knots``, CEM's
 ``sample`` and ``refit``, and ``sync`` around every call that makes the
-host wait for the card).  Off by default, a span costs one check.  Switch
-it on with ``tracing()`` or by profiling (``profile_trace``: every span is
-then also a range ``irs/<name>`` in the Chrome trace), then read
+host wait for the card).  A ``chain`` that runs as one kernel launch
+also counts ``chain_kernel``.  Off by default, a span costs one check.
+Switch it on with ``tracing()`` or by profiling (``profile_trace``: every
+span is then also a range ``irs/<name>`` in the Chrome trace), then read
 ``records()`` or ``report()`` (host milliseconds by name).  Spans never
 synchronise: a span's time is the host's.  ``block_until_ready`` waits
 for the CUDA devices that hold the given tensors, the counterpart of

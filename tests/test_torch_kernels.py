@@ -756,6 +756,30 @@ def test_k4_on_cem_population_matches_plain_on_card():
 
 
 @needs_cuda
+@pytest.mark.parametrize("name", ["box_pushing", "planar_hand"])
+def test_constructor_chain_through_k4_matches_plain_on_card(name):
+    """The iRS constructor's initial rollout at the examples' horizons
+    (box pushing T=60, the planar hand T=30) is one K4 launch, within
+    CHAIN_ATOL of the plain warm chain on the card, at its cost to
+    rtol 1e-5."""
+    build = getattr(chip_smoke, f"{name}_solver")
+    before = cuda_rollout.LAUNCHES
+    card, _ = build("cuda")
+    torch.cuda.synchronize()
+    assert cuda_rollout.LAUNCHES == before + 1
+    plain_system = dataclasses.replace(card.system, ls_rollout_fn=None)
+    plain = IrsMpc(plain_system, card.params, device="cuda")
+    assert cuda_rollout.LAUNCHES == before + 1
+    gap = (card.x_trj - plain.x_trj).abs().max().item()
+    cost_gap = abs(card.cost - plain.cost) / abs(plain.cost)
+    print(f"[K4 constructor] {name}: x gap {gap:.3e}, "
+          f"relative cost gap {cost_gap:.3e}")
+    assert card.x_trj.shape == plain.x_trj.shape
+    assert gap < chip_smoke.CHAIN_ATOL
+    assert cost_gap < 1e-5
+
+
+@needs_cuda
 def test_batched_step_route_matches_plain_on_card():
     """The surrogate's batched step on CUDA tensors is one K2 launch, and
     agrees with the plain PDIP on the same states."""
