@@ -975,21 +975,32 @@ def drive_slice(label, solver, iterations, per_it, card, rollouts):
     """Run ``iterations`` iterations of ``solver`` on the card with every
     launch count set to 0 just before and read just after; check the
     launches per iteration (``per_it``), that the trajectories stay on the
-    card, finite and of their shapes.  Returns the launches and the median
-    ms per iteration after the first."""
+    card, finite and of their shapes.  K2's are those of an iteration
+    whose estimation sweep runs eagerly: a sweep replayed from its CUDA
+    graph (the tracer's ``est_graph``) launches none from the host, and
+    its capture's warm-up (``est_capture``) launches them once.  Returns
+    the launches and the median ms per iteration after the first."""
     for mod in KERNELS:
         mod.LAUNCHES = 0
-    solver.iterate(iterations, verbose=False)
+    timing.reset()
+    with timing.tracing():
+        solver.iterate(iterations, verbose=False)
     torch.cuda.synchronize()
+    sweeps = timing.counted("estimation")
+    timing.reset()
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in KERNELS}
     print(f"[{label}] cost curve: "
           + " ".join(f"{c:.4f}" for c in solver.cost_lst))
-    print(f"[{label}] launches in {iterations} iterations: {launches}")
+    print(f"[{label}] launches in {iterations} iterations: {launches}; "
+          f"estimation sweeps replayed {sweeps['est_graph']}, captured "
+          f"{sweeps['est_capture']}")
+    eager = iterations - sweeps["est_graph"] + sweeps["est_capture"]
     for name, n in per_it.items():
-        check(launches[name] == n * iterations,
+        want = n * (eager if name == "cuda_qp" else iterations)
+        check(launches[name] == want,
               f"{label}: {launches[name]} launches of {name} in "
-              f"{iterations} iterations, expected {n} each")
+              f"{iterations} iterations, expected {want}")
     tensors = ([solver.x_trj, solver.u_trj, solver.Q, solver.Qd, solver.R,
                 solver.x0, solver.xd_trj, solver.x_trj_best,
                 solver.u_trj_best] + solver.x_trj_lst + solver.u_trj_lst)
@@ -1062,13 +1073,35 @@ def check_golden(label, curve0, best, initial, best_max, best_min=0.0):
           f"{label}: best cost {best} is not in [{best_min}, {best_max}]")
 
 
+def trace_device_ops(path):
+    """The device operations of an exported Chrome trace: (category,
+    name, microseconds, the host call that launched it), the call found
+    by correlation id (None where the trace lacks it).  A CUDA graph's
+    kernels appear one by one, each under its ``cudaGraphLaunch``."""
+    launches, ops = {}, []
+    for ev in json.loads(Path(path).read_text()).get("traceEvents", []):
+        if ev.get("ph") != "X":
+            continue
+        cat = ev.get("cat", "")
+        corr = ev.get("args", {}).get("correlation")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ops.append((cat, ev.get("name", ""), float(ev.get("dur", 0)),
+                        corr))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = ev.get("name")
+    return [(cat, name, us, launches.get(corr))
+            for cat, name, us, corr in ops]
+
+
 def profile_iteration(solver, iterations, card, logdir):
     """Where an iteration's time goes: ``iterations`` iterations with each
     phase timed on the host's clock from a device synchronisation to the
     next, then as many under ``profile_trace`` unsynchronised, for the
-    device's busy share, its kernels by name and the program's own spans;
+    device's busy share, its kernels by name (read from the exported
+    trace, a CUDA graph's kernels included) and the program's own spans;
     the trace goes to ``logdir`` and must name K4's kernel and the
-    ``irs/iteration`` span."""
+    ``irs/iteration`` span, and hold K2's two kernels under each replay
+    of the estimation sweep's graph."""
     totals = collections.defaultdict(float)
     anchor = solver.x0                  # block_until_ready: the card
 
@@ -1120,10 +1153,9 @@ def profile_iteration(solver, iterations, card, logdir):
           f"iteration, synchronised: {total / iterations * 1e3:.3f} ms "
           f"(mean of {iterations}; {card})")
 
-    from torch.autograd import DeviceType
     torch.cuda.synchronize()
     timing.reset()
-    with profile_trace(logdir) as prof:
+    with profile_trace(logdir):
         t0 = time.perf_counter()
         solver.iterate(iterations, verbose=False)
         torch.cuda.synchronize()
@@ -1137,19 +1169,26 @@ def profile_iteration(solver, iterations, card, logdir):
           f"K4's rollout_kernel and the program's spans; their host ms "
           f"over {iterations} iterations, unsynchronised:")
     print(timing.report())
+    replays = timing.counted("estimation")["est_graph"]
     timing.reset()
     by_name = collections.defaultdict(float)
-    count = 0
-    for ev in prof.events():
-        # The program's irs/ ranges are shown on the device too: not work.
-        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
-            by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
+    count = k2_replayed = 0
+    for cat, name, us, launched_by in trace_device_ops(trace):
+        by_name[name] += us / 1e3
+        if cat == "kernel":
             count += 1
+            k2_replayed += ("pdip_kernel" in name
+                            and launched_by == "cudaGraphLaunch")
     busy = sum(by_name.values())
     if not count:
         print("[profile] the profiler recorded no device events: busy "
               "share not measured")
         return
+    print(f"[profile] K2 kernels run by the estimation graph's replays: "
+          f"{k2_replayed} in {replays} replays")
+    check(k2_replayed == 2 * replays,
+          f"profile: {k2_replayed} K2 kernels under cudaGraphLaunch in "
+          f"{replays} replays of the estimation sweep, expected 2 each")
     print(f"[profile] {iterations} iterations unsynchronised: "
           f"{wall * 1e3 / iterations:.3f} ms each; {count / iterations:.1f} "
           f"device kernels per iteration; device busy {busy:.3f} ms of "

@@ -25,7 +25,8 @@ from .qp import _pdip_solve
 MAX_N = 16
 MAX_M = 64
 
-# Kernel launches made by solve_qp_batched_cuda.
+# Kernel launches made from the host by solve_qp_batched_cuda; one
+# recorded into a CUDA graph is not counted (its replays launch it).
 LAUNCHES = 0
 
 
@@ -100,5 +101,6 @@ def solve_qp_batched_cuda(P, q, C, d, iters: int = 30, sigma: float = 0.25,
                                  int(init is not None), int(want_lam),
                                  stream_of(device))
     LIB.check(err, "batched QP kernel")
-    LAUNCHES += 1
+    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        LAUNCHES += 1
     return (x, lam) if want_lam else x

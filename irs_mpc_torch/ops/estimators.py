@@ -10,16 +10,26 @@ batched over knots.  Modes (the reference's ``gradient_mode`` strings):
   * "zero_order_B"   - sample du only; B from least squares, A from the
                        exact Jacobian (or first-order averaging).
   * "zero_order_AB"  - sample (dx, du), damped least squares for both.
+
+On float32 CUDA tensors the zero-order modes' fused sweep (a system's
+``est_sweep_fn``) runs after the draws (and zero_order_B's A, where it is
+needed) as one CUDA graph replay: the sweep, the fits and c are captured
+once for each sweep function, mode and shape (``SWEEP_GRAPHS``) and
+replayed every call, in place of some hundreds of small launches from the
+host.  Every other call runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..models.base import System
 from ..utils import timing
+from . import _nvcc
 from .linalg import solve_spd
 
 Tensor = torch.Tensor
@@ -186,25 +196,96 @@ def _A_hat(system, cfg, x_nom, u_nom, du, need_A):
     return system.jacobian_xu_batch(x_nom, u_nom)[:, :, :n]
 
 
-def _estimate_fused(system: System, mode: str, x_trj, u_trj, generator, it,
-                    cfg: SmoothingConfig, perturbations, need_A: bool):
-    """Zero-order estimation through the system's fused sweep hook: one
-    ``est_sweep_fn`` call gives the nominal steps at full solver accuracy
-    and every sample step; the per-knot fits run on the deltas.  Returns
-    (AB (T,n,n+m), f_nom (T,n)).  The draws are those of the flat path
-    (dx, then du)."""
-    dx, du = _draws(system, x_trj, generator, it, cfg, perturbations)
-    f_nom, fd = system.est_sweep_fn(
-        x_trj[:-1], u_trj, None if mode == "zero_order_B" else dx, du)
+def _fused_tv(system: System, mode: str, cfg: SmoothingConfig, x_nom,
+              u_nom, du, dx=None, A=None):
+    """The zero-order estimation through the system's fused sweep hook,
+    after the draws: one ``est_sweep_fn`` call gives the nominal steps at
+    full solver accuracy and every sample step; the per-knot fits run on
+    the deltas.  ``dx`` is given where the mode samples the state;
+    zero_order_B's A block is ``A`` (made by ``_A_hat``), zeros without
+    it.  Returns (AB (T,n,n+m), c (T,n), f_nom (T,n))."""
+    f_nom, fd = system.est_sweep_fn(x_nom, u_nom, dx, du)
     D = fd - f_nom[:, None, :]
     if mode == "zero_order":
         AB = _fit_lstsq(torch.cat([dx, du], dim=2), D)
     elif mode == "zero_order_AB":
         AB = _fit_lstsq(torch.cat([dx, du], dim=2), D, damp=cfg.damp)
     else:                                             # zero_order_B
-        AB = torch.cat([_A_hat(system, cfg, x_trj[:-1], u_trj, du, need_A),
-                        _fit_lstsq(du, D)], dim=2)
-    return AB, f_nom
+        if A is None:
+            A = _A_hat(system, cfg, x_nom, u_nom, du, need_A=False)
+        AB = torch.cat([A, _fit_lstsq(du, D)], dim=2)
+    n = system.dim_x
+    return AB, _affine_c(AB[:, :, :n], AB[:, :, n:], f_nom, x_nom,
+                         u_nom), f_nom
+
+
+# The fused sweeps captured as CUDA graphs (``SweepGraph``): for each sweep
+# function, a dict of its graphs by (mode, T, S, n, m, need_A, damp, dtype,
+# device).  Weakly keyed by the sweep function itself: solvers that share
+# an estimation surrogate share its graphs, and a graph's private pool is
+# freed with the surrogate that made it.
+SWEEP_GRAPHS = weakref.WeakKeyDictionary()
+
+
+class SweepGraph:
+    """``fn(**inputs)`` captured as one CUDA graph, replayed on new inputs.
+
+    Built on the first call of its key: the inputs are copied into static
+    buffers, ``fn`` runs once on a side stream (so that the device
+    constants the sweep caches on first use, and cuBLAS's state, are made
+    outside the capture), then is captured into a private memory pool.  A
+    call copies its inputs into the static buffers, replays the graph and
+    returns clones of the static outputs: a later replay overwrites the
+    buffers, never what a caller holds.  The kernels' launch counters
+    count the warm-up's launches and not the captured ones; a replay's
+    are on the device trace, under its ``cudaGraphLaunch``."""
+
+    def __init__(self, fn, inputs: dict):
+        self.inputs = {k: t.clone() for k, t in inputs.items()}
+        side = torch.cuda.Stream(self.inputs["du"].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(**self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(**self.inputs)
+
+    def __call__(self, **inputs):
+        for k, t in inputs.items():
+            self.inputs[k].copy_(t)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+def _estimate_fused(system: System, mode: str, x_trj, u_trj, generator, it,
+                    cfg: SmoothingConfig, perturbations, need_A: bool):
+    """Zero-order estimation through the fused sweep: the draws of the
+    flat path (dx, then du) and zero_order_B's A where needed, eagerly;
+    then ``_fused_tv``, replayed from its graph where every input is a
+    float32 CUDA tensor and eagerly elsewhere.  Returns (AB, c, f_nom).
+    The estimation span counts ``est_graph`` for each replay and
+    ``est_capture`` for each capture."""
+    dx, du = _draws(system, x_trj, generator, it, cfg, perturbations)
+    inputs = dict(x_nom=x_trj[:-1], u_nom=u_trj, du=du)
+    if mode != "zero_order_B":
+        inputs["dx"] = dx
+    elif need_A:
+        inputs["A"] = _A_hat(system, cfg, x_trj[:-1], u_trj, du, need_A)
+    fn = functools.partial(_fused_tv, system, mode, cfg)
+    if not all(_nvcc.on_card(t) and t.dtype == torch.float32
+               for t in inputs.values()):
+        return fn(**inputs)
+    T, S, m = du.shape
+    graphs = SWEEP_GRAPHS.setdefault(system.est_sweep_fn, {})
+    key = (mode, T, S, system.dim_x, m, need_A, cfg.damp, du.dtype,
+           du.device)
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = SweepGraph(fn, inputs)
+        timing.count("est_capture")
+    timing.count("est_graph")
+    return graph(**inputs)
 
 
 def _affine_c(A, B, f_nom, x_nom, u_nom):
@@ -224,7 +305,8 @@ def estimate_tv_matrices_fnom(
     ``perturbations=(dx (T,S,n), du (T,S,m))`` supplies the scaled sample
     perturbations instead of drawing them from ``generator``.  A system
     with an ``est_sweep_fn`` and no projection takes the fused sweep in
-    the zero-order modes.  ``need_A=False`` skips zero_order_B's A (the
+    the zero-order modes, on float32 CUDA tensors as a graph replay
+    (``SweepGraph``).  ``need_A=False`` skips zero_order_B's A (the
     caller is about to overwrite it, as ``decouple_AB`` does)."""
     if mode not in GRADIENT_MODES:
         raise ValueError(
@@ -232,9 +314,12 @@ def estimate_tv_matrices_fnom(
     n = system.dim_x
     fused = (system.est_sweep_fn is not None and system.projection is None
              and mode in ("zero_order", "zero_order_B", "zero_order_AB"))
-    estimate = _estimate_fused if fused else _estimate_flat
-    AB, f_nom = estimate(system, mode, x_trj, u_trj, generator, it, cfg,
-                         perturbations, need_A)
+    if fused:
+        AB, c, f_nom = _estimate_fused(system, mode, x_trj, u_trj, generator,
+                                       it, cfg, perturbations, need_A)
+        return TvLinearization(A=AB[:, :, :n], B=AB[:, :, n:], c=c), f_nom
+    AB, f_nom = _estimate_flat(system, mode, x_trj, u_trj, generator, it,
+                               cfg, perturbations, need_A)
     A, B = AB[:, :, :n], AB[:, :, n:]
     return TvLinearization(A=A, B=B, c=_affine_c(A, B, f_nom, x_trj[:-1],
                                                  u_trj)), f_nom

@@ -14,11 +14,16 @@ from ..ops import cuda_admm, lqr
 @contextlib.contextmanager
 def capture(module, name, calls):
     """Record the arguments of every call of ``module.name`` in ``calls``
-    (the call goes through unchanged)."""
+    (the call goes through unchanged), except calls made while a CUDA
+    graph is being captured: those launch nothing.  The estimation's
+    graph runs its sweep eagerly once before its capture, so a fresh
+    solver's first iteration records K2's two calls as before."""
     real = getattr(module, name)
 
     def recording(*args, **kwargs):
-        calls.append((args, kwargs))
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            calls.append((args, kwargs))
         return real(*args, **kwargs)
 
     setattr(module, name, recording)

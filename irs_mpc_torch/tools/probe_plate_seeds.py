@@ -22,6 +22,7 @@ import torch
 from ..examples import plate_pickup
 from ..models.contact import cuda_qp, cuda_rollout
 from ..ops import _nvcc, cuda_admm, cuda_riccati
+from ..utils import timing
 from ..utils.timing import card_line
 
 ITERATIONS, INITIAL, BEST, RTOL = (
@@ -49,12 +50,19 @@ def best(seed, route):
     try:
         solver, _ = plate_pickup.build_solver(seed=seed, device="cuda")
         cuda_qp.LAUNCHES = 0
-        solver.iterate(ITERATIONS, verbose=False)
+        timing.reset()
+        with timing.tracing():
+            solver.iterate(ITERATIONS, verbose=False)
         torch.cuda.synchronize()
     finally:
         cuda_qp.solve_qp_batched_cuda = real
+    sweeps = timing.counted("estimation")
+    timing.reset()
     launches = cuda_qp.LAUNCHES
-    want = 2 * ITERATIONS if route == "K2" else 0
+    # Two K2 solves an estimation: the host launches them where it runs
+    # eagerly and in its graph's warm-up, and a replay runs the captured.
+    eager = ITERATIONS - sweeps["est_graph"] + sweeps["est_capture"]
+    want = 2 * eager if route == "K2" else 0
     check(launches == want, f"seed {seed} {route}: {launches} K2 "
                             f"launches, expected {want}")
     check(abs(solver.cost_lst[0] - INITIAL) <= 1e-3 * INITIAL,

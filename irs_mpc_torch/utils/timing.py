@@ -6,11 +6,14 @@ phases where they run (``plan_init``, ``iteration``, ``estimation``,
 ``lqr``, ``rollout``, ``cost``, ``chain`` with its ``knots``, CEM's
 ``sample`` and ``refit``, and ``sync`` around every call that makes the
 host wait for the card).  A ``chain`` that runs as one kernel launch
-also counts ``chain_kernel``.  Off by default, a span costs one check.
+also counts ``chain_kernel``; an ``estimation`` counts ``est_graph`` for
+each replay of its fused sweep's CUDA graph and ``est_capture`` for each
+capture of one.  Off by default, a span costs one check.
 Switch it on with ``tracing()`` or by profiling (``profile_trace``: every
 span is then also a range ``irs/<name>`` in the Chrome trace), then read
-``records()`` or ``report()`` (host milliseconds by name).  Spans never
-synchronise: a span's time is the host's.  ``block_until_ready`` waits
+``records()``, ``counted()`` (the counts of a span's name, summed) or
+``report()`` (host milliseconds by name).  Spans never synchronise: a
+span's time is the host's.  ``block_until_ready`` waits
 for the CUDA devices that hold the given tensors, the counterpart of
 ``jax.block_until_ready``.
 """
@@ -24,7 +27,7 @@ import os
 import subprocess
 import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -208,6 +211,15 @@ def tracing(on: bool = True):
         yield
     finally:
         TRACER.enabled = was
+
+
+def counted(name: str) -> Counter:
+    """The counts of the buffer's spans called ``name``, summed."""
+    total: Counter = Counter()
+    for s in records():
+        if s.name == name:
+            total.update(s.counts or {})
+    return total
 
 
 def report() -> str:

@@ -26,6 +26,7 @@ from irs_mpc_torch import IrsMpc, IrsMpcParams, SmoothingConfig, \
     make_pendulum, make_planar_hand  # noqa: E402
 from irs_mpc_torch.models.contact import cuda_qp, cuda_rollout  # noqa: E402
 from irs_mpc_torch.ops import admm, cuda_admm, cuda_riccati, lqr  # noqa: E402
+from irs_mpc_torch.utils import timing  # noqa: E402
 
 # The condition is a string so that it is evaluated when the test runs,
 # not when the module is imported.
@@ -193,7 +194,9 @@ def test_admm_kernel_matches_plain_on_card(kinds):
 @needs_cuda
 def test_rollout_kernel_matches_plain_and_slice_launches_on_card():
     """K4 on the line search of the slice's first iteration, then the
-    slice's launches: 2 of K2 and 1 each of K1, K3 and K4 per iteration."""
+    slice's launches: 1 each of K1, K3 and K4 per iteration, and K2's 2
+    an iteration inside the estimation sweep's CUDA graph, which the host
+    launches in its capture's warm-up and not in a replay."""
     _, _, (args, _) = chip_smoke.first_iteration_inputs()
     before = cuda_rollout.LAUNCHES
     xs, us = cuda_rollout.linesearch_rollout_cuda(*args)
@@ -206,8 +209,13 @@ def test_rollout_kernel_matches_plain_and_slice_launches_on_card():
     solver, _ = chip_smoke.planar_hand_solver("cuda")
     mods = (cuda_qp, cuda_riccati, cuda_admm, cuda_rollout)
     before = [mod.LAUNCHES for mod in mods]
-    solver.iterate(2, verbose=False)
-    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [4, 2, 2, 2]
+    timing.reset()
+    with timing.tracing():
+        solver.iterate(2, verbose=False)
+    sweeps = [r.counts for r in timing.records() if r.name == "estimation"]
+    timing.reset()
+    assert sweeps == [{"est_graph": 1, "est_capture": 1}, {"est_graph": 1}]
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [2, 2, 2, 2]
     assert solver.cost_best < solver.cost_lst[0]
 
 
@@ -404,13 +412,19 @@ def test_rollout_kernel_on_every_pair_kind_on_card(name, swapped):
 @needs_cuda
 @pytest.mark.parametrize("name", ["box_pushing", "box_pivoting"])
 def test_box_slice_launches_on_card(name):
-    """Per iteration of a box slice: 2 launches of K2 and 1 each of K1,
-    K3 and K4, as the planar hand."""
+    """Per iteration of a box slice: 1 launch each of K1, K3 and K4, and
+    K2's 2 inside the estimation sweep's CUDA graph, as the planar
+    hand."""
     solver, _ = getattr(chip_smoke, f"{name}_solver")("cuda")
     mods = (cuda_qp, cuda_riccati, cuda_admm, cuda_rollout)
     before = [mod.LAUNCHES for mod in mods]
-    solver.iterate(2, verbose=False)
-    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [4, 2, 2, 2]
+    timing.reset()
+    with timing.tracing():
+        solver.iterate(2, verbose=False)
+    sweeps = [r.counts for r in timing.records() if r.name == "estimation"]
+    timing.reset()
+    assert sweeps == [{"est_graph": 1, "est_capture": 1}, {"est_graph": 1}]
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [2, 2, 2, 2]
     assert solver.cost_best < solver.cost_lst[0]
 
 

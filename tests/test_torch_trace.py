@@ -107,6 +107,22 @@ def test_spans_nest_share_a_plan_and_count_on_the_innermost():
             assert parent.t0 <= r.t0 <= r.t1 <= parent.t1
 
 
+def test_counted_sums_the_counts_of_a_name():
+    with timing.tracing():
+        with timing.span("estimation"):
+            timing.count("est_graph")
+            timing.count("est_capture")
+        with timing.span("estimation"):
+            timing.count("est_graph")
+        with timing.span("estimation"):
+            pass
+        with timing.span("chain"):
+            timing.count("knots", 6)
+    assert timing.counted("estimation") == {"est_graph": 2, "est_capture": 1}
+    assert timing.counted("chain") == {"knots": 6}
+    assert timing.counted("lqr") == {}
+
+
 def test_a_full_buffer_drops_spans_and_keeps_the_rest():
     tr = timing.Tracer(capacity=2)
     tr.enabled = True
