@@ -23,8 +23,9 @@ StepFn = Callable[[Tensor, Tensor], Tensor]
 ProjectionFn = Callable[[Tensor, Tensor, Tensor, Tensor],
                         tuple[Tensor, Tensor]]
 
-# The constant arguments of ``System.rollout``'s kernel route (u_prev0,
-# K = 0, lb = -inf, ub = inf), made once for each (T, m, n, device).
+# The constant arguments of ``System.rollout``'s kernel route (u_prev0 = 0,
+# K = 0, a contiguous z_ref_x, lb = -inf, ub = inf), made once for each
+# (lanes, T, m, n, device), so that no call copies them.
 _CHAIN_ARGS: dict = {}
 
 
@@ -55,9 +56,10 @@ class System:
     # Whole-chain line-searched feedback rollout,
     #   (x0, u_prev0, K, z_ref_x, z_ref_w | None, u_ref, lb, ub,
     #    rel_lb | None, rel_ub | None) -> (xs (A,T+1,n), us (A,T,m)),
-    # which the solver and ``rollout`` take for float32 CUDA tensors
-    # (kernel K4 for contact models).  Must match the solver's plain
-    # rollout loop and, with zero gains and no bounds, the warm chain.
+    # which ``rollout_lanes`` and ``rollout`` take for float32 CUDA
+    # tensors (kernel K4 for contact models).  Must match the plain loop
+    # of ``rollout_lanes`` and, with zero gains and no bounds, the warm
+    # chain.
     ls_rollout_fn: Optional[Callable] = None
     # Hand-written batched step, (B,n), (B,m) -> (B,n) (kernel K2 for the
     # contact models' estimation surrogate on CUDA); must agree with
@@ -87,21 +89,41 @@ class System:
         """Batched fat Jacobian: (B,n), (B,m) -> (B,n,n+m)."""
         return torch.func.vmap(self.jacobian_xu)(x, u)
 
+    def _kernel_route(self, x0: Tensor, u: Tensor) -> bool:
+        """Whether chains from ``x0`` under inputs ``u`` go through
+        ``ls_rollout_fn``: the system has one and the tensors are float32
+        on the card.  The one rule of ``rollout`` and ``rollout_lanes``."""
+        return (self.ls_rollout_fn is not None and _nvcc.on_card(u)
+                and x0.dtype == u.dtype == torch.float32)
+
     @timing.spanned("chain")
     def rollout(self, x0: Tensor, u_trj: Tensor) -> Tensor:
         """Open-loop rollout: (n,), (..., T, m) -> the (..., T+1, n) state
         trajectories.  Leading dims of ``u_trj`` are independent chains,
-        each from ``x0``, all stepped together.  Float32 tensors on the
-        card go through the system's whole-chain rollout where it has one
-        (one K4 launch: zero gains, no bounds, the inputs as the lanes'
-        plan), counted ``chain_kernel``; every other call steps the warm
-        chain (the plain one without ``step_ws_fn``) knot by knot.  Its
-        span ``chain`` counts the ``knots`` it steps."""
+        each from ``x0``, all stepped together.  On the kernel route the
+        chains are the open-loop lanes of one ``rollout_lanes`` call (one
+        K4 launch: zero gains, no bounds, the inputs as the lanes' plan),
+        counted ``chain_kernel``; every other call steps the warm chain
+        (the plain one without ``step_ws_fn``) knot by knot.  Its span
+        ``chain`` counts the ``knots`` it steps."""
         timing.count("knots", u_trj.shape[-2])
-        if (self.ls_rollout_fn is not None and _nvcc.on_card(u_trj)
-                and x0.dtype == u_trj.dtype == torch.float32):
+        if self._kernel_route(x0, u_trj):
             timing.count("chain_kernel")
-            return self._rollout_kernel(x0, u_trj)
+            T, m = u_trj.shape[-2:]
+            u_ref = u_trj.reshape(-1, T, m)
+            A, n, dev = u_ref.shape[0], self.dim_x, u_ref.device
+            key = (A, T, m, n, dev)
+            if key not in _CHAIN_ARGS:
+                # K = 0, so z_ref_x never reaches u: zeros serve every x0.
+                inf = torch.full((T, m), torch.inf, device=dev)
+                _CHAIN_ARGS[key] = (torch.zeros(m, device=dev),
+                                    torch.zeros((T, m, n), device=dev),
+                                    torch.zeros((A, T, n), device=dev),
+                                    -inf, inf)
+            u_prev0, K, z_ref_x, lb, ub = _CHAIN_ARGS[key]
+            xs, _ = self.rollout_lanes(x0, u_prev0, K, z_ref_x, None, u_ref,
+                                       lb, ub, None, None)
+            return xs.reshape(u_trj.shape[:-2] + xs.shape[-2:])
         x = x0.expand(u_trj.shape[:-2] + x0.shape)
         xs = [x]
         if self.step_ws_fn is not None:
@@ -115,32 +137,42 @@ class System:
                 xs.append(x)
         return torch.stack(xs, dim=-2)
 
-    def _rollout_kernel(self, x0: Tensor, u_trj: Tensor) -> Tensor:
-        """``rollout``'s chains as open-loop lanes of ``ls_rollout_fn``,
-        the leading dims of ``u_trj`` flattened into lanes."""
-        T, m = u_trj.shape[-2:]
-        n, dev = self.dim_x, u_trj.device
-        key = (T, m, n, dev)
-        if key not in _CHAIN_ARGS:
-            inf = torch.full((T, m), torch.inf, device=dev)
-            _CHAIN_ARGS[key] = (torch.zeros(m, device=dev),
-                                torch.zeros((T, m, n), device=dev), -inf, inf)
-        u_prev0, K, lb, ub = _CHAIN_ARGS[key]
-        u_ref = u_trj.reshape(-1, T, m)
-        xs, _ = self.ls_rollout_fn(x0, u_prev0, K,
-                                   x0.expand(u_ref.shape[0], T, n), None,
-                                   u_ref, lb, ub, None, None)
-        return xs.reshape(u_trj.shape[:-2] + (T + 1, n))
-
-    def rollout_batch(self, x0: Tensor, u_trj_b: Tensor) -> Tensor:
-        """Population rollout: (n,), (B, T, m) -> (B, T+1, n), through
-        ``step_batch_fn`` when the system has one (cold batched steps),
-        else through ``rollout``, all B at once."""
-        if self.step_batch_fn is None:
-            return self.rollout(x0, u_trj_b)
-        x = x0.expand(u_trj_b.shape[0], -1)
-        xs = [x]
-        for t in range(u_trj_b.shape[1]):
-            x = self.step_batch_fn(x, u_trj_b[:, t])
+    def rollout_lanes(self, x0: Tensor, u_prev0: Tensor, K: Tensor,
+                      z_ref_x: Tensor, z_ref_w: Optional[Tensor],
+                      u_ref: Tensor, lb: Tensor, ub: Tensor,
+                      rel_lb: Optional[Tensor], rel_ub: Optional[Tensor]):
+        """The line-searched feedback rollout, ``ls_rollout_fn``'s
+        arguments: every lane a of A from x0 under
+        u_t = u_ref[a,t] - K_t (z_t - z_ref[a,t]), z = [x; u_prev] with
+        ``z_ref_w`` (z_ref = [z_ref_x; z_ref_w]) else x, clipped first to
+        u_prev + the rel bounds, then to [lb_t, ub_t].  Returns xs
+        (A, T+1, n), us (A, T, m).  On the kernel route one
+        ``ls_rollout_fn`` call; every other call is the plain loop below,
+        all lanes as one batch through the warm chain (or batched
+        step)."""
+        if self._kernel_route(x0, u_ref):
+            return self.ls_rollout_fn(x0, u_prev0, K, z_ref_x, z_ref_w,
+                                      u_ref, lb, ub, rel_lb, rel_ub)
+        aug = z_ref_w is not None
+        z_ref = torch.cat([z_ref_x, z_ref_w], dim=-1) if aug else z_ref_x
+        n_lanes, T = u_ref.shape[:2]
+        x = x0.expand(n_lanes, -1)
+        u_prev = u_prev0.expand(n_lanes, -1)
+        ws = (self.ws_init_fn(x0.device) if self.step_ws_fn is not None
+              else None)
+        xs, us = [x], []
+        for t in range(T):
+            z = torch.cat([x, u_prev], dim=1) if aug else x
+            u = u_ref[:, t] - (z - z_ref[:, t]) @ K[t].T
+            if rel_lb is not None:
+                u = torch.minimum(torch.maximum(u, u_prev + rel_lb[t]),
+                                  u_prev + rel_ub[t])
+            u = torch.minimum(torch.maximum(u, lb[t]), ub[t])
+            if ws is not None:
+                x, ws = self.step_ws_fn(x, u, ws)
+            else:
+                x = self.step_batch(x, u)
             xs.append(x)
-        return torch.stack(xs, dim=1)
+            us.append(u)
+            u_prev = u
+        return torch.stack(xs, dim=1), torch.stack(us, dim=1)

@@ -7,13 +7,12 @@ persisted elites and band-limited (knot-interpolated) noise.
 
 The population is scored by warm per-candidate chains, never by cold
 batched steps (those corrupt elite selection on contact tasks, as the JAX
-package measured).  On CUDA tensors a system with a whole-chain rollout
-(``ls_rollout_fn``: kernel K4 for the contact models) rolls every candidate
-in one launch, as open-loop lanes (K = 0, no bounds); the refit mean and
-the initial trajectory go through the same chain, so candidates and the
-accepted mean are scored alike.  Every other system rolls the population
-through ``System.rollout``, all candidates stepped together, on whatever
-device it is on.
+package measured): ``System.rollout``, which on float32 CUDA tensors rolls
+every candidate in one call of a whole-chain rollout where the system has
+one (kernel K4 for the contact models, open-loop lanes) and otherwise
+steps all candidates together.  The refit mean and the initial trajectory
+go through the same chain, so candidates and the accepted mean are scored
+alike.
 """
 from __future__ import annotations
 
@@ -25,7 +24,6 @@ import numpy as np
 import torch
 
 from ..models.base import System
-from ..ops import _nvcc
 from ..utils import timing
 
 Tensor = torch.Tensor
@@ -157,7 +155,6 @@ class CrossEntropyMethod:
         # nominal into the first population.
         self.kept = (self.u_trj[None].repeat(p.elite_keep, 1, 1)
                      if p.elite_keep > 0 else None)
-        self._chain_args = {}
 
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(p.seed)
@@ -197,28 +194,9 @@ class CrossEntropyMethod:
 
     def rollout(self, u_b: Tensor) -> Tensor:
         """(B, T, m) -> (B, T+1, n): every candidate's open-loop chain from
-        x0; through the system's whole-chain rollout (one K4 launch) on
-        CUDA tensors where it has one, else ``System.rollout``."""
-        sys = self.system
-        if sys.ls_rollout_fn is None or not _nvcc.on_card(u_b):
-            with timing.span("rollout"):
-                return sys.rollout(self.x0, u_b)
-        B, T, m = u_b.shape
-        if B not in self._chain_args:
-            n = sys.dim_x
-            dev = self.device
-            inf = torch.full((T, m), torch.inf, device=dev)
-            self._chain_args[B] = dict(
-                u_prev0=torch.zeros(m, device=dev),
-                K=torch.zeros((T, m, n), device=dev),
-                z_ref_x=self.x0.expand(B, T, n).contiguous(),
-                lb=-inf, ub=inf)
-        a = self._chain_args[B]
+        x0, through ``System.rollout``."""
         with timing.span("rollout"):
-            xs, _ = sys.ls_rollout_fn(self.x0, a["u_prev0"], a["K"],
-                                      a["z_ref_x"], None, u_b, a["lb"],
-                                      a["ub"], None, None)
-        return xs
+            return self.system.rollout(self.x0, u_b)
 
     def _noise(self, noise: Optional[Tensor]) -> Tensor:
         """The population's unit noise (B, T, m) from a standard-normal

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from ..models.base import System
-from ..ops import _nvcc
 from ..ops import admm as admm_ops
 from ..ops import lqr as lqr_ops
 from ..ops.estimators import (SmoothingConfig, TvLinearization, decouple_AB,
@@ -441,16 +440,10 @@ class IrsMpc:
         u_ref = u_trj + a3 * (u_plan - u_trj)              # (A, T, m)
 
         with timing.span("rollout"):
-            if sys.ls_rollout_fn is not None and _nvcc.on_card(x_trj):
-                # The whole chain, every lane and knot, in one launch.
-                xs_all, us_all = sys.ls_rollout_fn(
-                    x_trj[0], u_prev0, K,
-                    z_ref[..., :n], z_ref[..., n:] if self._aug else None,
-                    u_ref, lb, ub, rel_lb, rel_ub)
-            else:
-                xs_all, us_all = self._rollout_lanes(x_trj[0], u_prev0, K,
-                                                     z_ref, u_ref, lb, ub,
-                                                     rel_lb, rel_ub)
+            xs_all, us_all = self._rollout_lanes(
+                x_trj[0], u_prev0, K, z_ref[..., :n],
+                z_ref[..., n:] if self._aug else None, u_ref, lb, ub,
+                rel_lb, rel_ub)
         costs_all = torch.stack(self.eval_cost(xs_all, us_all), dim=1)
 
         totals = torch.where(torch.isnan(costs_all[:, 0]), torch.inf,
@@ -546,33 +539,11 @@ class IrsMpc:
             u_prev = u
         return torch.stack(xs), torch.stack(us)
 
-    def _rollout_lanes(self, x0, u_prev0, K, z_ref, u_ref, lb, ub, rel_lb,
-                       rel_ub):
-        """The plain line-search rollout: all lanes as one batch through
-        the system's warm chain (or batched step).  Returns xs (A, T+1, n),
-        us (A, T, m)."""
-        sys = self.system
-        n_lanes = u_ref.shape[0]
-        x = x0.expand(n_lanes, -1)
-        u_prev = u_prev0.expand(n_lanes, -1)
-        ws = (sys.ws_init_fn(self.device) if sys.step_ws_fn is not None
-              else None)
-        xs, us = [x], []
-        for t in range(self.T):
-            z = torch.cat([x, u_prev], dim=1) if self._aug else x
-            u = u_ref[:, t] - (z - z_ref[:, t]) @ K[t].T
-            if rel_lb is not None:
-                u = torch.minimum(torch.maximum(u, u_prev + rel_lb[t]),
-                                  u_prev + rel_ub[t])
-            u = torch.minimum(torch.maximum(u, lb[t]), ub[t])
-            if ws is not None:
-                x, ws = sys.step_ws_fn(x, u, ws)
-            else:
-                x = sys.step_batch(x, u)
-            xs.append(x)
-            us.append(u)
-            u_prev = u
-        return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+    def _rollout_lanes(self, *args):
+        """The line search's rollout, ``System.rollout_lanes`` (which picks
+        K4 or the plain loop): the solver's own seam, where the benchmark's
+        fault control plants altered states."""
+        return self.system.rollout_lanes(*args)
 
     # ------------------------------------------------------------------
     def iterate(self, max_iterations: int, verbose: bool = True):

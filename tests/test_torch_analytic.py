@@ -108,8 +108,8 @@ def test_rollout_matches_jax(name):
     assert tuple(got.shape) == (13, ts.dim_x)
     _close(got.numpy(), want, name)
     # A batch of input trajectories rolls as independent chains.
-    batch = ts.rollout_batch(torch.from_numpy(x[0]),
-                             torch.from_numpy(np.stack([u_trj, -u_trj])))
+    batch = ts.rollout(torch.from_numpy(x[0]),
+                       torch.from_numpy(np.stack([u_trj, -u_trj])))
     np.testing.assert_allclose(batch[0].numpy(), got.numpy(), rtol=1e-6,
                                atol=1e-6)
 

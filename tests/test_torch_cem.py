@@ -20,12 +20,10 @@ the CPU (the plain chains).
   ones, both packages off the float64 chain by up to 1.05e-2); those are
   counted, at most one more than measured (``EXEMPT``), and both packages'
   costs of them are held to the float64 chain's at rtol 2e-2.
-* ``System.rollout_batch`` (``tests/test_cem.py:187-215``): without a
-  batched step it is the warm chains of ``rollout``, equal to the JAX
-  package's vmapped chains at atol 1e-5; the contact model's batched-step
-  route (the plain PDIP on the CPU, K2 on the card) equals the JAX
-  package's scan of cold vmapped steps at atol 1e-5, and its warm chains at
-  the JAX test's atol 2e-2.
+* A population through ``System.rollout`` is the warm chains, equal to
+  the JAX package's vmapped chains at atol 1e-5, and a system with a
+  batched step (K2 on the card) scores it by the same warm chains, never
+  by cold batched steps.
 * The CEM configurations of ``chip_smoke`` are the JAX examples' (carried
   across with ``convert.cem_params_from_jax``), and their initial costs are
   the JAX package's at rtol 1e-5.
@@ -197,7 +195,7 @@ def test_divergent_mean_is_rejected():
     assert np.isfinite(cem.cost_best)
 
 
-def test_rollout_batch_matches_jax():
+def test_population_rollout_matches_jax():
     jm = jmpc.models.contact.systems.make_box_pushing()
     tm = convert.model_from_jax(jm)
     rng = np.random.RandomState(0)
@@ -207,23 +205,18 @@ def test_rollout_batch_matches_jax():
            + rng.randn(B, T, 2) * 0.02).astype(np.float32)
     jx0, ju = jnp.asarray(x0), jnp.asarray(u_b)
     warm = np.asarray(jax.vmap(lambda u: jm.system().rollout(jx0, u))(ju))
-    # Without a batched step: the warm chains, all lanes at once.
+    # The warm chains, all lanes at once.
     plain = tm.system()
     assert plain.step_batch_fn is None
-    got = plain.rollout_batch(torch.from_numpy(x0), torch.from_numpy(u_b))
+    got = plain.rollout(torch.from_numpy(x0), torch.from_numpy(u_b))
     np.testing.assert_allclose(got.numpy(), warm, atol=1e-5)
-    # The batched-step route: cold solves at qp_iters, as the JAX package's
-    # scan of vmapped steps.
+    # A batched step does not change how a population is scored.
     routed = tm.system(batch_kernel=True)
+    assert routed.step_batch_fn is not None
     before = cuda_qp.LAUNCHES
-    got = routed.rollout_batch(torch.from_numpy(x0), torch.from_numpy(u_b))
-    assert cuda_qp.LAUNCHES == before          # plain PDIP on the CPU
-    cold = dataclasses.replace(jm.system(),
-                               step_batch_fn=jax.vmap(jm.step))
-    np.testing.assert_allclose(got.numpy(),
-                               np.asarray(cold.rollout_batch(jx0, ju)),
-                               atol=1e-5)
-    np.testing.assert_allclose(got.numpy(), warm, atol=2e-2)
+    assert torch.equal(routed.rollout(torch.from_numpy(x0),
+                                      torch.from_numpy(u_b)), got)
+    assert cuda_qp.LAUNCHES == before
 
 
 def test_estimation_surrogate_takes_the_batched_step_route():
@@ -333,22 +326,44 @@ def test_cem_population_route_through_k4_source_on_cpu_shim(rollout_shim,
     """What the card runs for a contact CEM: the population and the mean
     through K4 (its source on the CPU shim), one launch each, K = 0,
     against the warm chains of ``System.rollout`` at the chain check's
-    tolerance."""
+    tolerance.  The population is one ``chain`` of ``System.rollout``
+    inside CEM's ``rollout`` span, and its ``z_ref_x`` is the route's
+    cached contiguous constant, which K4's wrapper takes without a copy."""
     from irs_mpc_torch.tools import cpu_shim
+    from irs_mpc_torch.utils import timing
     cem, model = chip_smoke.planar_hand_cem("cpu", T=3, batch_size=4,
                                             n_elite=2)
     cand = cem.u_trj + 0.05 * torch.randn(
         (4, 3, 4), generator=torch.Generator().manual_seed(0))
     want = cem.system.rollout(cem.x0, cand)
+    calls = []
+    k4 = cem.system.ls_rollout_fn
+
+    def recording(*args):
+        calls.append(args)
+        return k4(*args)
+
+    cem.system = dataclasses.replace(cem.system, ls_rollout_fn=recording)
     monkeypatch.setattr(_nvcc, "on_card", lambda t: True)
-    with cpu_shim.attached(cuda_rollout, rollout_shim):
+    timing.reset()
+    with cpu_shim.attached(cuda_rollout, rollout_shim), timing.tracing():
         before = cuda_rollout.LAUNCHES
         got = cem.rollout(cand)
         assert cuda_rollout.LAUNCHES == before + 1
+        recs = timing.records()
+        chains = [r for r in recs if r.name == "chain"]
+        assert [r.counts for r in chains] == [
+            {"knots": 3, "chain_kernel": 1}]
+        assert recs[chains[0].parent].name == "rollout"
         cuda_rollout.LAUNCHES = 0
         st = cem._step(cem.u_trj, cem.std_trj, cem.x_trj,
                        torch.tensor(cem.cost), cem.kept)
         assert cuda_rollout.LAUNCHES == 2      # the population, the mean
+    timing.reset()
+    z_ref_x = calls[0][3]
+    assert z_ref_x.shape == (4, 3, model.nq) and z_ref_x.is_contiguous()
+    assert calls[1][3] is z_ref_x              # the population again
+    assert not calls[0][2].any()               # K = 0
     assert got.shape == (4, 4, model.nq)
     np.testing.assert_allclose(got.numpy(), want.numpy(),
                                atol=chip_smoke.CHAIN_ATOL)
