@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -42,6 +43,12 @@ Tensor = torch.Tensor
 # Bound magnitudes must stay below BOUND_BIG / 10 (the JAX package masks
 # unconstrained stages with BOUND_BIG).
 BOUND_BIG = 1e7
+
+# The systems whose dynamics probe (``IrsMpc._probe``) passed, each with the
+# devices it passed on.  The probe's answer depends on the system and the
+# device alone, so a constructor probes a system once on each device.
+# Weakly keyed by the system itself: the entry goes with the system.
+PROBED = weakref.WeakKeyDictionary()
 
 
 @dataclasses.dataclass
@@ -139,7 +146,8 @@ class IrsMpc:
     raises.  The constructor rolls out the initial guess through
     ``System.rollout``: one launch of the system's whole-chain kernel (K4)
     on the card where the system has one, the warm chain knot by knot
-    elsewhere."""
+    elsewhere.  Before that it checks the dynamics by one step, the first
+    time a system meets a device (``_probe``)."""
 
     def __init__(self, system: System, params: IrsMpcParams,
                  device="cuda"):
@@ -216,15 +224,7 @@ class IrsMpc:
             raise RuntimeError("Qd must be dim_x x dim_x.")
         if np.shape(p.R) != (s.dim_u, s.dim_u):
             raise RuntimeError("R must be dim_u x dim_u.")
-        try:
-            out = s.step(torch.zeros(s.dim_x, device=self.device),
-                         torch.zeros(s.dim_u, device=self.device))
-            if tuple(out.shape) != (s.dim_x,):
-                raise ValueError(f"step returned shape {tuple(out.shape)}")
-        except Exception as e:
-            raise RuntimeError(
-                "Could not evaluate dynamics. Have you implemented it?"
-            ) from e
+        self._probe()
         for name in ("x_bounds_abs", "u_bounds_abs",
                      "x_bounds_rel", "u_bounds_rel"):
             b = getattr(p, name)
@@ -245,6 +245,33 @@ class IrsMpc:
         if p.riccati_backend not in lqr_ops.BACKENDS:
             raise ValueError(f"riccati_backend {p.riccati_backend!r} not in "
                              f"{lqr_ops.BACKENDS}")
+
+    def _probe(self):
+        """One ``step`` at x = 0, u = 0 on the solver's device, once for
+        each system and device in the process (``PROBED``; ``cuda`` is the
+        current card): its output is checked for shape and dropped, and it
+        draws no random numbers.  A probe that runs is the span ``probe``;
+        a constructor that finds the pair passed counts ``probe_reused``.
+        Only a pass is recorded, so a system whose step fails raises at
+        every constructor."""
+        s, dev = self.system, self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev in PROBED.get(s, ()):
+            timing.count("probe_reused")
+            return
+        with timing.span("probe"):
+            try:
+                out = s.step(torch.zeros(s.dim_x, device=self.device),
+                             torch.zeros(s.dim_u, device=self.device))
+                if tuple(out.shape) != (s.dim_x,):
+                    raise ValueError(
+                        f"step returned shape {tuple(out.shape)}")
+            except Exception as e:
+                raise RuntimeError(
+                    "Could not evaluate dynamics. Have you implemented it?"
+                ) from e
+        PROBED.setdefault(s, set()).add(dev)
 
     # ------------------------------------------------------------------
     @timing.spanned("cost")

@@ -8,9 +8,12 @@ phases where they run (``plan_init``, ``iteration``, ``estimation``,
 host wait for the card).  A ``chain`` that runs as one kernel launch
 also counts ``chain_kernel``; an ``estimation`` counts ``est_graph`` for
 each replay of its fused sweep's CUDA graph and ``est_capture`` for each
-capture of one.  Off by default, a span costs one check.
-Switch it on with ``tracing()`` or by profiling (``profile_trace``: every
-span is then also a range ``irs/<name>`` in the Chrome trace), then read
+capture of one.  The iRS constructor's dynamics probe runs in the span
+``probe`` inside ``plan_init``, which counts ``probe_reused`` where the
+system had passed it on the device before.  Off by default, a span costs
+one check.  Switch it on with ``tracing()`` or by profiling
+(``profile_trace``: every span is then also a range ``irs/<name>`` in the
+Chrome trace), then read
 ``records()``, ``counted()`` (the counts of a span's name, summed) or
 ``report()`` (host milliseconds by name).  Spans never synchronise: a
 span's time is the host's.  ``block_until_ready`` waits
